@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port, on one CUDA card.
+
+    python3 profiling/torch_profile.py [flagship] [slice]
+
+Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
+linspace(1, 3), float64 u_kn made on the card from a seed):
+
+* ``flagship``: bench.py's K = 1024 x 976 samples (8.2 GB);
+* ``slice``: the many-state slice, K = 8192 x 40 samples (21.5 GB), which
+  takes wsum_dd's split route (K3 + K4) in every polish iteration.
+
+For each (both when none is named) it warms up ``MBAR(u_kn, N_k)`` and
+``compute_free_energy_differences()`` once, then prints JSON lines:
+
+* host-clock walls (fenced by ``torch.cuda.synchronize()``): the
+  double-word split, the dd solve's phase 1 (float32 warm start and chord
+  factor) and phase 2 (polish), the Theta Gram pass, the rank-nnz Theta
+  algebra on the card and the dense numpy algebra on the host for the
+  same Gram, the free energies, and peak device memory;
+* ``MBAR`` walls by the route the state count picks and by the other
+  wsum route (``_SPLIT_ROUTE_K`` moved), in turns this, other, other, this;
+* for the flagship, one ``torch.profiler`` trace of MBAR + free energies:
+  device time per kernel name (top 15), and the device-busy share of the
+  unprofiled wall of the same work.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# name: (K, samples per state, take a profiler trace).  The profiler's trace
+# of the slice (thousands of eager ops on 8192^2 matrices) did not finish
+# within ten minutes on an H100, so the slice reports walls only.
+CONFIGS = {"flagship": (1024, 976, True), "slice": (8192, 40, False)}
+
+
+def oscillators(torch, K, npk, dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    O = torch.linspace(0.0, 5.0, K, dtype=torch.float64, device=dev)
+    Kf = torch.linspace(1.0, 3.0, K, dtype=torch.float64, device=dev)
+    z = torch.randn((K, npk), generator=gen, dtype=torch.float64, device=dev)
+    x = (O[:, None] + z / torch.sqrt(Kf)[:, None]).reshape(-1)
+    N = K * npk
+    u = torch.empty((K, N), dtype=torch.float64, device=dev)
+    step = max(1, 2**26 // K)
+    for s in range(0, N, step):
+        u[:, s : s + step] = 0.5 * Kf[:, None] * (x[None, s : s + step] - O[:, None]) ** 2
+    return u, [npk] * K
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def profile_config(torch, name, card):
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.ops import wsum
+    from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization
+    from pymbar_tpu_torch.solvers_large import dev_split_planes
+
+    dev = torch.device("cuda", 0)
+    K, npk, trace = CONFIGS[name]
+    u, N_k = oscillators(torch, K, npk, dev)
+    timed(torch, lambda: MBAR(u, N_k).compute_free_energy_differences())  # warm-up
+
+    walls = {}
+    torch.cuda.reset_peak_memory_stats()
+    walls["split_s"], planes = timed(torch, lambda: dev_split_planes(u))
+    del planes
+    walls["mbar_init_s"], m = timed(torch, lambda: MBAR(u, N_k))
+    info = m.solver_results[0]["info"]
+    walls["dd_phase1_s"] = info["phase1_s"]
+    walls["dd_phase2_s"] = info["phase2_s"]
+    walls["polish_iterations"] = info["polish_iterations"]
+    walls["f32_coarse_iterations"] = info["f32_coarse_iterations"]
+    walls["gram_pass_s"], (gram, _, _) = timed(
+        torch, lambda: mbar_gram_normalization(u, m.N_k, m.f_k)
+    )
+    walls["theta_card_lowrank_s"], _ = timed(
+        torch, lambda: m._theta_svd_ew_lowrank(gram, m.N_k).cpu().numpy()
+    )
+    gram = gram.cpu().numpy()
+    t0 = time.perf_counter()
+    m._theta_svd_ew_from_gram(gram, m.N_k)
+    walls["theta_host_dense_s"] = time.perf_counter() - t0
+    del gram
+    walls["free_energies_s"], _ = timed(torch, lambda: m.compute_free_energy_differences())
+    walls["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(json.dumps(dict(config=name, card=card, K=K, N=K * npk, **walls)), flush=True)
+
+    # the other wsum route on the same tensor, in turns
+    this = "split" if K > wsum._SPLIT_ROUTE_K else "k1"
+    other = "k1" if this == "split" else "split"
+    gates = {"split": 0, "k1": 2**31}
+    saved = wsum._SPLIT_ROUTE_K
+    turns = {this: [], other: []}
+    try:
+        for route in (this, other, other, this):
+            wsum._SPLIT_ROUTE_K = gates[route]
+            turns[route].append(timed(torch, lambda: MBAR(u, N_k))[0])
+    finally:
+        wsum._SPLIT_ROUTE_K = saved
+    print(json.dumps(dict(config=name, card=card, route_by_state_count=this,
+                          mbar_init_s_by_route=turns)), flush=True)
+    if trace:
+        print(json.dumps(dict(config=name, card=card, **device_trace(torch, u, N_k, walls))),
+              flush=True)
+    del u, m
+    torch.cuda.empty_cache()
+
+
+def device_trace(torch, u, N_k, walls):
+    """Device time per kernel over one MBAR + free energies, and the
+    device-busy share of the unprofiled wall of the same work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pymbar_tpu_torch import MBAR
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        MBAR(u, N_k).compute_free_energy_differences()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    # device-side events only (the aten ops' own device totals would count
+    # their kernels twice)
+    kernels = [
+        (e.key, dev_us(e), e.count) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+    ]
+    kernels.sort(key=lambda t: -t[1])
+    busy_s = sum(t[1] for t in kernels) / 1e6
+    # the profiler slows the host side, so the idle share is taken against
+    # the unprofiled wall of the same work
+    unprofiled = walls["mbar_init_s"] + walls["free_energies_s"]
+    return dict(
+        profiled_wall_s=wall, unprofiled_wall_s=unprofiled, device_busy_s=busy_s,
+        device_idle_share=1.0 - busy_s / unprofiled,
+        top_kernels=[dict(name=k[:90], device_ms=t / 1e3, calls=c) for k, t, c in kernels[:15]],
+    )
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    names = sys.argv[1:] or list(CONFIGS)
+    unknown = [n for n in names if n not in CONFIGS]
+    if unknown:
+        raise SystemExit(f"unknown configuration(s) {unknown}; choose from {list(CONFIGS)}")
+    sys.path.insert(0, REPO)
+    from pymbar_tpu_torch.ops import _build
+
+    for lib in ("wsum", "wsum_split"):  # build outside every timed region
+        _build.load(lib)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    for name in names:
+        profile_config(torch, name, card)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
 """pymbar_tpu_torch — the PyTorch/CUDA port of pymbar_tpu.
 
 The MBAR solve and the free-energy differences, in PyTorch, with the
-double-word polish's weight-sum pass (``wsum_dd``) as a hand-written CUDA
-kernel for NVIDIA Hopper (sm_90a).  :mod:`pymbar_tpu` (JAX) stays the
+double-word polish's weight-sum pass (``wsum_dd``, and above 4096 states
+its split pair ``denom_sums_dd`` + ``wsum_denom_dd``) as hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a).  Entry points place numpy input on the
+CUDA card unless ``device="cpu"`` is asked for.  :mod:`pymbar_tpu` (JAX) stays the
 reference; this package imports neither it nor JAX.
 
 Exported so far: ``MBAR``, ``testsystems`` and ``utils``.  The rest of

@@ -22,26 +22,21 @@
 //   1. wsum_columns: one thread per column, threads across n so every row
 //      load is coalesced; an online max with a rescaled sum gives m_n and
 //      s_n with one exp per element; writes m_n and r_n (f64 scratch).
-//   2. wsum_rows: grid (k tiles of kRowsPerBlock rows, n splits); each thread
-//      walks its columns once for all rows of the tile (m_n and r_n loaded
-//      once per column), accumulates T_kn r_n in f64 registers, and the
-//      block reduces with warp shuffles into partial[split, k].
-//   3. wsum_finish: sums the partials over the splits in a fixed order and
-//      splits S into hi/lo float32.
+//   2. wsum_rows (wsum_rows.cuh, shared with K4): grid (k tiles of 8 rows,
+//      n splits); each thread walks its columns once for all rows of the
+//      tile, accumulates T_kn r_n in f64 registers, and the block reduces
+//      with warp shuffles into partial[split, k].
+//   3. wsum_finish (wsum_rows.cuh): sums the partials over the splits in a
+//      fixed order and splits S into hi/lo float32.
 // Recomputing T in pass 2 costs one more read of the planes (8 B/element)
 // where storing it would cost a write and a read (16 B/element in f64).
 // One read with T kept on chip (TMA tiles) is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "wsum_rows.cuh"
 
 namespace {
 
 constexpr int kColThreads = 256;
-constexpr int kRowsPerBlock = 8;
-constexpr int kRowThreads = 256;
-constexpr int kFinishThreads = 256;
 
 __global__ void __launch_bounds__(kColThreads)
 wsum_columns(const float* __restrict__ uh, const float* __restrict__ ul,
@@ -72,79 +67,6 @@ wsum_columns(const float* __restrict__ uh, const float* __restrict__ ul,
   r_out[n] = r;
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kRowThreads)
-wsum_rows(const float* __restrict__ uh, const float* __restrict__ ul,
-          const float* __restrict__ gh, const float* __restrict__ gl,
-          const double* __restrict__ m, const double* __restrict__ r,
-          int K, int64_t N, int64_t cols_per_split,
-          double* __restrict__ partial) {
-  const int k0 = blockIdx.x * kRowsPerBlock;
-  const int split = blockIdx.y;
-  const int64_t n0 = (int64_t)split * cols_per_split;
-  const int64_t n1 = (n0 + cols_per_split < N) ? n0 + cols_per_split : N;
-
-  double g[kRowsPerBlock];
-  double acc[kRowsPerBlock];
-#pragma unroll
-  for (int j = 0; j < kRowsPerBlock; ++j) {
-    const int k = k0 + j;
-    g[j] = (k < K) ? (double)gh[k] + (double)gl[k] : 0.0;
-    acc[j] = 0.0;
-  }
-
-  for (int64_t n = n0 + threadIdx.x; n < n1; n += blockDim.x) {
-    const double rn = r[n];
-    if (rn == 0.0) continue;  // pad columns (and zero counts) add exactly 0
-    const double mn = m[n];
-#pragma unroll
-    for (int j = 0; j < kRowsPerBlock; ++j) {
-      const int k = k0 + j;
-      if (k < K) {
-        const size_t idx = (size_t)k * (size_t)N + (size_t)n;
-        const double a = g[j] - ((double)uh[idx] + (double)ul[idx]);
-        acc[j] += exp(a - mn) * rn;
-      }
-    }
-  }
-
-  __shared__ double red[kRowsPerBlock][kRowThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kRowsPerBlock; ++j) {
-    const double v = warp_sum(acc[j]);
-    if (lane == 0) red[j][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kRowsPerBlock) {
-    const int j = threadIdx.x;
-    const int k = k0 + j;
-    if (k < K) {
-      double v = 0.0;
-      for (int w = 0; w < kRowThreads / 32; ++w) v += red[j][w];
-      partial[(size_t)split * (size_t)K + (size_t)k] = v;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kFinishThreads)
-wsum_finish(const double* __restrict__ partial, int K, int n_split,
-            float* __restrict__ s_hi, float* __restrict__ s_lo) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  double S = 0.0;
-  for (int i = 0; i < n_split; ++i) S += partial[(size_t)i * (size_t)K + (size_t)k];
-  const float hi = (float)S;
-  s_hi[k] = hi;
-  s_lo[k] = (float)(S - (double)hi);
-}
-
 }  // namespace
 
 // Launches the three kernels on `stream` and returns cudaGetLastError().
@@ -160,11 +82,6 @@ extern "C" int wsum_dd_launch(const float* uh, const float* ul, const float* gh,
   if (col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   wsum_columns<<<(unsigned)col_blocks, kColThreads, 0, st>>>(uh, ul, gh, gl, c, K, N, m, r);
 
-  const int64_t cols_per_split = (N + n_split - 1) / n_split;
-  const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, n_split);
-  wsum_rows<<<grid, kRowThreads, 0, st>>>(uh, ul, gh, gl, m, r, K, N, cols_per_split, partial);
-
-  wsum_finish<<<(K + kFinishThreads - 1) / kFinishThreads, kFinishThreads, 0, st>>>(
-      partial, K, n_split, s_hi, s_lo);
+  launch_rows_and_finish(uh, ul, gh, gl, m, r, K, N, n_split, partial, s_hi, s_lo, st);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""The MBAR estimator class (PyTorch port, first slice).
+"""The MBAR estimator class (PyTorch port).
 
 The counterpart of :class:`pymbar_tpu.mbar.MBAR` (reference pymbar 4.x
 mbar.py:64-1988) for the solve and the free-energy differences: the same
@@ -8,8 +8,10 @@ initialization, bootstrap and the multi-device mesh are still to be ported
 and raise :class:`ParameterError` where the constructor would need them.
 
 ``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
-is, a numpy array goes to ``device`` (default CPU).  Nothing moves between
-devices on its own; the K x K covariance algebra runs on the host in numpy.
+is, a numpy array goes to ``device`` (default: the CUDA card; without one,
+pass ``device="cpu"``).  Nothing moves between devices on its own.  Theta's
+K x K algebra runs where the Gram is: on the card through the rank-nnz
+form, on the CPU through the dense numpy eigh + pinv.
 """
 
 import logging
@@ -24,6 +26,7 @@ from pymbar_tpu_torch.solvers import (
     DEFAULT_SOLVER_PROTOCOL,
     JAX_SOLVER_PROTOCOL,
     ROBUST_SOLVER_PROTOCOL,
+    target_device,
 )
 from pymbar_tpu_torch.utils import ParameterError, kln_to_kn
 
@@ -53,7 +56,8 @@ def _same_device(a, b):
 
 def _u_tensor(u_kn, N_k, device):
     """u_kn as a float64 (K, N) tensor.  A tensor keeps its device (and must
-    match ``device`` when one is given); numpy goes to ``device``."""
+    match ``device`` when one is given); numpy goes to ``device``, by
+    default the CUDA card (:func:`target_device`)."""
     if torch.is_tensor(u_kn):
         if device is not None and not _same_device(device, u_kn.device):
             raise ParameterError(
@@ -69,16 +73,17 @@ def _u_tensor(u_kn, N_k, device):
         return u_kn.to(torch.float64).contiguous()
     if np.ndim(u_kn) == 3:
         u_kn = kln_to_kn(np.asarray(u_kn), N_k=N_k)
-    return torch.as_tensor(np.array(u_kn, dtype=np.float64), device=device or "cpu")
+    return torch.as_tensor(np.array(u_kn, dtype=np.float64), device=target_device(device))
 
 
 class MBAR:
     """Multistate Bennett acceptance ratio estimator on PyTorch.
 
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
-    a numpy ``u_kn`` is placed (default "cpu"; a tensor's own device is
-    used as it is).  ``initialize="BAR"``, ``n_bootstraps > 0`` and ``mesh``
-    are not yet ported and raise :class:`ParameterError`.
+    a numpy ``u_kn`` is placed (default "cuda", and without a card a
+    :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
+    device is used as it is).  ``initialize="BAR"``, ``n_bootstraps > 0``
+    and ``mesh`` are not yet ported and raise :class:`ParameterError`.
 
     A CUDA ``u_kn`` of at least ``_DD_ROUTE_BYTES`` with no explicit
     ``solver_protocol`` is solved by the two-phase double-word solver
@@ -345,8 +350,11 @@ class MBAR:
     def _compute_theta_streamed(self, method=None):
         """Theta over the K states with W consumed in Gram form only: one
         streamed f64 pass (:func:`mbar_gram_normalization`) on u_kn's device
-        gives W^T W, the column sums and the row-check aggregates; the K x K
-        algebra runs in numpy."""
+        gives W^T W, the column sums and the row-check aggregates.  A CUDA
+        Gram stays on the card for the rank-nnz form
+        (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
+        accelerator; a CPU Gram takes the dense numpy path.  Theta is
+        returned as a numpy array."""
         if method is None:
             method = "svd-ew"
         if method == "svd":
@@ -357,10 +365,11 @@ class MBAR:
             raise ParameterError(f"Method {method} unrecognized.")
         gram, colsum, rowstats = mbar_gram_normalization(self.u_kn, self.N_k, self.f_k)
         self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
-        gram = gram.cpu().numpy()
         if method == "approximate":
-            return gram
-        return self._theta_svd_ew_from_gram(gram, self.N_k)
+            return gram.cpu().numpy()
+        if gram.is_cuda:
+            return self._theta_svd_ew_lowrank(gram, self.N_k).cpu().numpy()
+        return self._theta_svd_ew_from_gram(gram.numpy(), self.N_k)
 
     @staticmethod
     def _theta_svd_ew_from_gram(gram, N_k):
@@ -376,6 +385,49 @@ class MBAR:
         inner = I - VS.T @ (Np[:, None] * VS)
         inner_pinv = np.linalg.pinv(inner, rcond=1.0e-10)
         return (VS @ inner_pinv) @ VS.T
+
+    @staticmethod
+    def _theta_svd_ew_lowrank(gram, N_k, rows=None):
+        """The covariance of :meth:`_theta_svd_ew_from_gram`, computed
+        through the rank structure of ``diag(N)`` on the Gram's device
+        (the JAX package's ``MBAR._theta_svd_ew_lowrank``).
+
+        With X = V Sigma (G = X X^T) and Z holding sqrt(N_k) e_k for the
+        nnz sampled states, the inner matrix is I - U U^T with U = X^T Z,
+        so its pinv expands spectrally from the eigh of the nnz x nnz
+
+            H = diag(sqrt(N)) G_ss diag(sqrt(N)),
+
+        giving Theta = G + F diag(phi) F^T with F = G Z P (P the
+        eigenvectors of H) and phi_i = 1/(1 - lam_i), or -1/lam_i on
+        directions the pinv truncates (|1 - lam_i| <= 1e-10 smax, smax >= 1,
+        np.linalg.pinv's relative cutoff).  One nnz-sized eigh and two thin
+        f64 matmuls replace a K-sized eigh, a pinv and three K^2 products.
+
+        ``gram``: (K, K) float64 tensor (or array, taken as a CPU tensor).
+        ``rows`` restricts the result to Theta[rows][:, rows].  Returns a
+        float64 tensor on the Gram's device.
+        """
+        gram = torch.as_tensor(gram, dtype=torch.float64)
+        dev = gram.device
+        Np = torch.as_tensor(np.asarray(N_k, dtype=np.float64), device=dev)
+        nz = torch.nonzero(Np > 0).flatten()
+        sq = torch.sqrt(Np[nz])
+        G_nz = gram.index_select(1, nz)
+        H = G_nz.index_select(0, nz) * sq[:, None] * sq[None, :]
+        lam, P = torch.linalg.eigh(H)
+        one_minus = 1.0 - lam
+        smax = torch.clamp(one_minus.abs().max(), min=1.0)
+        trunc = one_minus.abs() <= 1.0e-10 * smax
+        phi = torch.where(trunc, -1.0 / lam, 1.0 / torch.where(trunc, 1.0, one_minus))
+        if rows is None:
+            base, Gr_nz = gram, G_nz
+        else:
+            rows = torch.as_tensor(np.asarray(rows), device=dev)
+            base = gram.index_select(0, rows).index_select(1, rows)
+            Gr_nz = G_nz.index_select(0, rows)
+        F = (Gr_nz * sq[None, :]) @ P
+        return base + (F * phi[None, :]) @ F.T
 
     @staticmethod
     def _check_normalized_aggregates(column_sums, rowstats, tolerance=1.0e-4):

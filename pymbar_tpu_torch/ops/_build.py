@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on first use (never at import) into ``pymbar_tpu_torch/_build/``,
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once.  The library is loaded with ``ctypes``.
+named by a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+The library is loaded with ``ctypes``.
 """
 
 import ctypes
@@ -50,8 +51,9 @@ def build(name):
     ``_build/<name>.log``.
     """
     src = _CSRC / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = _BUILD / f"lib{name}-{digest}.so"
     if out.exists():

@@ -2,7 +2,9 @@
 
 ``wsum_dd`` is the counterpart of :func:`pymbar_tpu.ops.pallas_kernels.wsum_dd`
 with the same inputs, outputs and pad-column rule, minus the TPU knobs
-(tile width, interpret mode, fast exp).  Any K and N are accepted.
+(tile width, interpret mode, fast exp).  Any K and N are accepted; above
+``_SPLIT_ROUTE_K`` states it takes the many-state route through the split
+pair of :mod:`pymbar_tpu_torch.ops.wsum_split`, as the JAX package does.
 
 * CUDA tensors launch the hand-written Hopper kernel ``csrc/wsum.cu``
   (built by :mod:`pymbar_tpu_torch.ops._build` on first use).
@@ -10,7 +12,7 @@ with the same inputs, outputs and pad-column rule, minus the TPU knobs
   true f64 inner math (the same as ``pallas_kernels.wsum_dd_ref``).
 
 Nothing else is accepted, and nothing falls back.  ``WSUM_LAUNCHES`` counts
-the kernel's launches (one per call that launches it).
+the K1 kernel's launches (one per call that launches it).
 """
 
 import ctypes
@@ -20,8 +22,15 @@ import torch
 from pymbar_tpu_torch.ops import _build
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
 from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES
+from pymbar_tpu_torch.ops.wsum_split import (
+    check_planes,
+    column_shift,
+    denom_sums_dd,
+    row_splits,
+    wsum_denom_dd,
+)
 
-__all__ = ["wsum_dd", "wsum_dd_plain", "WSUM_LAUNCHES"]
+__all__ = ["wsum_dd", "wsum_dd_plain", "split_route", "WSUM_LAUNCHES"]
 
 WSUM_LAUNCHES = 0
 
@@ -29,40 +38,14 @@ WSUM_LAUNCHES = 0
 # holds the +1e10 sentinel).
 _PAD_M = -1.0e8
 
-# Rows per block of the kernel's second pass (kRowsPerBlock in csrc/wsum.cu);
-# used here only to size the number of column splits.
-_ROWS_PER_BLOCK = 8
-# Aim for ~2048 blocks in the second pass (~16 per SM on 132 SMs), with at
-# least 2048 columns per split so each thread walks >= 8 columns.
-_TARGET_BLOCKS = 2048
-_MIN_COLS_PER_SPLIT = 2048
-_MAX_SPLITS = 65535  # gridDim.y limit
-
-
-def _check(u_hi, u_lo, g_hi, g_lo, c):
-    for name, t in (("u_hi", u_hi), ("u_lo", u_lo), ("g_hi", g_hi), ("g_lo", g_lo), ("c", c)):
-        if t is None:
-            continue
-        if not torch.is_tensor(t):
-            raise TypeError(f"wsum_dd: {name} must be a torch.Tensor, got {type(t)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"wsum_dd: {name} must be float32, got {t.dtype}")
-        if t.device != u_hi.device:
-            raise ValueError(f"wsum_dd: {name} is on {t.device}, u_hi on {u_hi.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"wsum_dd: {name} must be contiguous")
-    if u_hi.ndim != 2 or u_lo.shape != u_hi.shape:
-        raise ValueError(
-            f"wsum_dd: u_hi and u_lo must be (K, N) of one shape, got "
-            f"{tuple(u_hi.shape)} and {tuple(u_lo.shape)}"
-        )
-    K, N = u_hi.shape
-    if K == 0 or N == 0:
-        raise ValueError(f"wsum_dd: empty planes {tuple(u_hi.shape)}")
-    if g_hi.shape != (K,) or g_lo.shape != (K,):
-        raise ValueError(f"wsum_dd: g_hi and g_lo must be ({K},)")
-    if c is not None and c.shape != (N,):
-        raise ValueError(f"wsum_dd: c must be ({N},), got {tuple(c.shape)}")
+# Above this many states wsum_dd takes the many-state (split) route:
+# column_shift -> denom_sums_dd -> pad mask -> wsum_denom_dd, as the JAX
+# package does for padded K > 4096 (pallas_kernels.py:688-705).  The value
+# is the JAX package's, set by the TPU's VMEM (K1 there holds a whole
+# column tile of K rows); the H100's K1 has no K cap, and where the gate
+# belongs on this card is still to be measured (PERF.md).  Module constant
+# so tests can move it.
+_SPLIT_ROUTE_K = 4096
 
 
 def wsum_dd_plain(u_hi, u_lo, g_hi, g_lo, c=None):
@@ -103,10 +86,7 @@ def _lib():
 def _launch(u_hi, u_lo, g_hi, g_lo, c):
     global WSUM_LAUNCHES
     K, N = u_hi.shape
-    if K > 2**31 - 1:
-        raise ValueError(f"wsum_dd: K={K} exceeds the kernel's int range")
-    k_tiles = -(-K // _ROWS_PER_BLOCK)
-    n_split = max(1, min(-(-_TARGET_BLOCKS // k_tiles), -(-N // _MIN_COLS_PER_SPLIT), _MAX_SPLITS))
+    n_split = row_splits(K, N)
     dev = u_hi.device
     m = torch.empty(N, dtype=torch.float64, device=dev)
     r = torch.empty(N, dtype=torch.float64, device=dev)
@@ -128,6 +108,18 @@ def _launch(u_hi, u_lo, g_hi, g_lo, c):
     return s_hi, s_lo
 
 
+def split_route(u_hi, u_lo, g_hi, g_lo, c=None):
+    """wsum_dd's many-state route, the JAX package's composition: the f32
+    global shift, K3's denominators, pad columns (m_n < -1e8) set to
+    d = 0, then K4.  The same inputs and outputs as :func:`wsum_dd`."""
+    m_n = column_shift(u_hi, g_hi)
+    d_hi, d_lo = denom_sums_dd(u_hi, u_lo, g_hi, g_lo, m_n)
+    pad = m_n < _PAD_M
+    d_hi.masked_fill_(pad, 0.0)
+    d_lo.masked_fill_(pad, 0.0)
+    return wsum_denom_dd(u_hi, u_lo, g_hi, g_lo, m_n, d_hi, d_lo, c)
+
+
 def wsum_dd(u_hi, u_lo, g_hi, g_lo, c=None):
     """S_k = sum_n c_n N_k W_nk in (hi, lo) float32, one pass pair over u.
 
@@ -135,8 +127,12 @@ def wsum_dd(u_hi, u_lo, g_hi, g_lo, c=None):
     potentials; g_hi/g_lo: (K,) float32 dd planes of f_k + ln N_k; c:
     optional (N,) float32 per-sample counts.  All contiguous, on one device.
     Returns (S_hi, S_lo), (K,) float32 each: the gradient is S - N_k.
+    More than ``_SPLIT_ROUTE_K`` states take the many-state route
+    (:func:`split_route`).
     """
-    _check(u_hi, u_lo, g_hi, g_lo, c)
+    check_planes("wsum_dd", u_hi, u_lo, g_hi, g_lo, c=c)
+    if u_hi.shape[0] > _SPLIT_ROUTE_K:
+        return split_route(u_hi, u_lo, g_hi, g_lo, c)
     if u_hi.device.type == "cuda":
         return _launch(u_hi, u_lo, g_hi, g_lo, c)
     if u_hi.device.type == "cpu":

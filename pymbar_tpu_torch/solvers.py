@@ -49,6 +49,7 @@ __all__ = [
     "solve_mbar_once",
     "solve_mbar",
     "solve_mbar_for_all_states",
+    "target_device",
 ]
 
 # Protocol constants (reference mbar_solvers.py:102-118), as in the JAX
@@ -92,6 +93,19 @@ _NOT_YET_PORTED = ("anderson", "BFGS")
 
 # Options that belong to the adaptive solver, not to scipy.
 _ADAPTIVE_ONLY = ("min_sc_iter", "print_warning", "gamma", "verbose", "nr_method")
+
+
+def target_device(device=None):
+    """Where an entry point places a numpy input: ``device`` when given,
+    else the CUDA card.  Without a card, and with no device asked for, it
+    raises :class:`ParameterError`: nothing falls back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise ParameterError(
+            'no CUDA device is available: pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda")
 
 
 def _as_tensor(u_kn):

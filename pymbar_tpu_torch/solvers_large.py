@@ -30,7 +30,7 @@ import torch
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
 from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES, gram_f32_acc64
 from pymbar_tpu_torch.ops.wsum import wsum_dd
-from pymbar_tpu_torch.solvers import _adaptive_while
+from pymbar_tpu_torch.solvers import _adaptive_while, target_device
 
 logger = logging.getLogger(__name__)
 
@@ -209,22 +209,28 @@ def solve_mbar_dd(
     f32_maxiter=40,
     polish_maxiter=12,
     gamma=1.0,
+    device=None,
 ):
     """Solve the MBAR equations on double-word-split reduced potentials.
 
     Parameters
     ----------
-    u_hi, u_lo : (K, N) float32 tensors (numpy arrays become CPU tensors)
-        Double-word planes of the (preconditioned) reduced potentials.
+    u_hi, u_lo : (K, N) float32 tensors, or numpy arrays
+        Double-word planes of the (preconditioned) reduced potentials.  A
+        tensor keeps its device; numpy goes to ``device``, by default the
+        CUDA card (``device="cpu"`` runs on the CPU).
     N_k : (K,) — all states must have samples (empty-state fill is the
         caller's job, as in solve_mbar_for_all_states).
     f_k : optional initial guess (float64).
     tol : relative convergence tolerance of the polish phase.
+    device : where numpy planes go (see ``u_hi``).
 
     Returns (f_k float64 ndarray, info dict with gnorm/iteration counts).
     """
-    u_hi = u_hi if torch.is_tensor(u_hi) else torch.from_numpy(np.asarray(u_hi))
-    u_lo = u_lo if torch.is_tensor(u_lo) else torch.from_numpy(np.asarray(u_lo))
+    if not torch.is_tensor(u_hi):
+        u_hi = torch.as_tensor(np.asarray(u_hi), device=target_device(device))
+    if not torch.is_tensor(u_lo):
+        u_lo = torch.as_tensor(np.asarray(u_lo), device=u_hi.device)
     dev = u_hi.device
     K = u_hi.shape[0]
     N_k_host = np.asarray(N_k, dtype=np.int64)
