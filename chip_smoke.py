@@ -5,8 +5,8 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero.
 
-0. The card's name and power limit (nvidia-smi); build csrc/wsum.cu and
-   csrc/wsum_split.cu with nvcc, in parallel.
+0. The card's name and power limit (nvidia-smi); build csrc/wsum.cu,
+   csrc/wsum_split.cu and csrc/lognum.cu with nvcc, in parallel.
 1. Each kernel against its plain PyTorch version on the same CUDA tensors.
    K1 wsum_dd: relative error of S <= 1e-13 at several shapes, pad columns
    change nothing, an all-pad matrix gives S == 0 exactly, the launch count
@@ -16,6 +16,14 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    slice's (8192, 327680); wsum_dd's split route against K1 on the same
    planes; appended pad columns, an all-pad matrix, the launch counts;
    times of each kernel, of the split route and of K1 at the slice's shape.
+   The lognum family (K6 logden_dd, K7 lognum_dd, K5 lognum_fused_dd) at
+   (1024, 65536), (5, 1003), (1, 1), (4096, 8192) + 77 pad columns,
+   (3000, 4096), the flagship shard (1024, 249856) and the flagship shape:
+   each kernel against its plain version (logs <= 1e-12, relative for a
+   sentinel column's ~-1e10; K5's sums <= 1e-13 relative), K6 then K7 on
+   K5's masked ld equal to K5 (<= 1e-13), K5's lognum_k + g_k = log S_k of
+   K1 (<= 1e-12), K5 unmoved by pad columns and exactly 0 on an all-pad
+   matrix, K7's phantom terms kept on pad columns; times at the flagship.
    Times are medians of 5 synchronize-fenced calls.
 2. The main path at full size: the flagship problem of bench.py (K = 1024
    harmonic-oscillator states x 976 samples, ~8 GB of float64 u_kn) made
@@ -32,6 +40,19 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    solver's and by a plain float64 evaluation, lie within 1e-10 in
    Delta_f of a dd solve of the same planes through K1, and give |z| < 6
    and a finite dDelta_f.
+   On a machine with several cards, MBAR sends phases 2 and 3 to the mesh
+   of every card; their checks then read the route from mbar.mesh and count
+   K1 (or the split kernels) once per shard per polish iteration.
+4. The sample-sharded path at full width: the flagship u_kn of phase 2
+   through MBAR(u_kn, N_k, mesh=...) on every card when there are several,
+   else on 4 shards of cuda:0, and the free energies (Delta_f within 5e-10
+   of phase 2's solve and 1e-8 of the f64 adaptive solve, |z| < 6, K1
+   launches = shards x polish iterations); sharded_solve_mbar_dd on its
+   planes (gradient norm / N <= 1e-11); K5 on the mesh at the converged f
+   (sharded_fused_lognum_dd: -lognum_k + lognum_0 within 1e-10 of
+   f_k - f_0, within 1e-12 of one K5 call on the whole planes, one K5
+   launch per shard); and a 3-shard pass on cuda:0, where 999,424 samples
+   leave pad columns.  Peak device memory of each card.
 
 Then the card, the kernels line and {"ok": true, "device": {...}} close the
 output.  Without a CUDA card, or without the repository beside this file,
@@ -53,7 +74,9 @@ FLAGSHIP_NPK = 976
 SLICE_K = 8192
 SLICE_NPK = 40
 S_REL_TOL = 1.0e-13
-SOURCES = ("wsum", "wsum_split")
+SOURCES = ("wsum", "wsum_split", "lognum")
+LOG_ABS_TOL = 1.0e-12
+MESH_DF_TOL = 5.0e-10
 
 # Lower bounds of a kernel's time: HBM3 at 3.35 TB/s and the H100 SXM's
 # vector peaks (NVIDIA data sheet, 700 W): 67 TFLOP/s float32, 34 TFLOP/s
@@ -119,6 +142,27 @@ def oscillators(torch, K, npk, gen, dev):
     return u_kn, [npk] * K, fa - fa[0]
 
 
+def log_err(a, b):
+    """max |a - b| of logs, relative where |b| > 1 (a sentinel column's
+    log-denominator sits near -1e10, where f64 holds ~2e-6)."""
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def lognum_shift(torch, uh, ld_hi):
+    """m_k = max_n (-ld_hi_n - u_hi_kn) in float32, column chunk by chunk."""
+    K, N = uh.shape
+    m = torch.full((K,), -torch.inf, dtype=torch.float32, device=uh.device)
+    width = max(1, 2**26 // K)
+    for s in range(0, N, width):
+        m = torch.maximum(m, (-ld_hi[None, s : s + width] - uh[:, s : s + width]).amax(dim=1))
+    return m
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def median_ms(torch, fn, reps=5):
     fn()
     torch.cuda.synchronize()
@@ -129,6 +173,15 @@ def median_ms(torch, fn, reps=5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def mesh_route(mbar):
+    """(route, shards): "mesh" and the mesh's size when MBAR took a mesh
+    (solver_protocol then holds the resolved default, as in the JAX
+    package), else the first stage's method and 1."""
+    if mbar.mesh is not None:
+        return "mesh", len(mbar.mesh.devices)
+    return mbar.solver_protocol[0]["method"], 1
 
 
 def max_abs_z(res, fa):
@@ -160,8 +213,9 @@ def main():
     import numpy as np
 
     from pymbar_tpu_torch import MBAR
-    from pymbar_tpu_torch.ops import _build, wsum, wsum_split
-    from pymbar_tpu_torch.ops.doubledouble import dd_to_f64
+    from pymbar_tpu_torch.ops import _build, lognum, wsum, wsum_split
+    from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
+    from pymbar_tpu_torch.parallel import sharding
     from pymbar_tpu_torch.ops.mbar_core import mbar_gradient, mbar_gram_normalization
     from pymbar_tpu_torch.solvers_large import dev_split_planes, solve_mbar_dd
 
@@ -339,8 +393,102 @@ def main():
          plain_ms={k: times[k][1] for k in ("column_shift", "denom_sums_dd", "wsum_denom_dd")},
          split_route_ms=route_ms, k1_ms=k1_slice_ms)
 
+    # ---- phase 1c: the lognum family against its plain versions
+    ln_names = ("logden_dd", "lognum_dd", "lognum_fused_dd")
+    ln_counters = ("LOGDEN_LAUNCHES", "LOGNUM_LAUNCHES", "LOGNUM_FUSED_LAUNCHES")
+    err.update({k: 0.0 for k in ln_names})
+    lognum_checks = []
+
+    def compare_lognum(label, uh, ul, gh, gl):
+        """K6, K7 (on K6's ld) and K5 by the kernels and by their plain
+        versions on the kernels' own inputs.  Returns (K5's sums, m_k)."""
+        before = [getattr(lognum, n) for n in ln_counters]
+        ld = lognum.logden_dd(uh, ul, gh, gl)
+        m_k = lognum_shift(torch, uh, ld[0])
+        ln = dd_to_f64(*lognum.lognum_dd(uh, ul, *ld, m_k))
+        s5 = dd_to_f64(*lognum.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True))
+        ln5 = dd_to_f64(*lognum.lognum_fused_dd(uh, ul, gh, gl, m_k))
+        torch.cuda.synchronize()
+        if [getattr(lognum, n) for n in ln_counters] != [before[0] + 1, before[1] + 1, before[2] + 2]:
+            fail(f"{label}: a lognum launch count did not rise")
+        ld64 = dd_to_f64(*ld)
+        ld_ref = dd_to_f64(*lognum.logden_dd_plain(uh, ul, gh, gl))
+        ln_ref = dd_to_f64(*lognum.lognum_dd_plain(uh, ul, *ld, m_k))
+        s_ref = dd_to_f64(*lognum.lognum_fused_dd_plain(uh, ul, gh, gl, m_k, return_sums=True))
+        ln5_ref = torch.log(s_ref) + m_k.to(torch.float64)
+        # K6 then K7 on K5's masked ld, and the identity with K1
+        pad = wsum_split.column_shift(uh, gh) < wsum._PAD_M
+        ln67 = dd_to_f64(*lognum.lognum_dd(
+            uh, ul, ld[0].masked_fill(pad, 1.0e10), ld[1].masked_fill(pad, 0.0), m_k))
+        S1 = dd_to_f64(*wsum.wsum_dd(uh, ul, gh, gl))
+        real = ld_ref.abs() < 1.0e8
+        e = dict(
+            logden_dd=log_err(ld64, ld_ref), lognum_dd=log_err(ln, ln_ref),
+            lognum_fused_dd_sums=rel_err(s5, s_ref), lognum_fused_dd=log_err(ln5, ln5_ref),
+            k6_k7_masked_vs_k5=log_err(ln67, ln5),
+            k1_identity=float((ln5 + dd_to_f64(gh, gl) - torch.log(S1)).abs().max()),
+        )
+        err["logden_dd"] = max(err["logden_dd"], float((ld64 - ld_ref)[real].abs().max()))
+        err["lognum_dd"] = max(err["lognum_dd"], float((ln - ln_ref).abs().max()))
+        err["lognum_fused_dd"] = max(err["lognum_fused_dd"], float((ln5 - ln5_ref).abs().max()))
+        lognum_checks.append(dict(case=label, K=uh.shape[0], N=uh.shape[1], **e))
+        if not (e["logden_dd"] <= LOG_ABS_TOL and e["lognum_dd"] <= LOG_ABS_TOL
+                and e["lognum_fused_dd"] <= LOG_ABS_TOL and e["lognum_fused_dd_sums"] <= S_REL_TOL):
+            fail(f"{label}: lognum kernels vs plain {e}")
+        if not e["k6_k7_masked_vs_k5"] <= S_REL_TOL:
+            fail(f"{label}: K6 then K7 on K5's mask differs from K5 by {e['k6_k7_masked_vs_k5']:.3e}")
+        if not e["k1_identity"] <= LOG_ABS_TOL:
+            fail(f"{label}: lognum_k + g_k differs from log S_k of K1 by {e['k1_identity']:.3e}")
+        return s5, m_k, ln
+
+    compare_lognum("1024x65536", *make_planes(torch, 1024, 65536, gen, dev))
+    compare_lognum("5x1003 ragged", *make_planes(torch, 5, 1003, gen, dev))
+    compare_lognum("1x1", *make_planes(torch, 1, 1, gen, dev))
+    compare_lognum("3000x4096 (K above the TPU kernel's 2048 cap)",
+                   *make_planes(torch, 3000, 4096, gen, dev))
+    uh, ul, gh, gl = make_planes(torch, 4096, 8192, gen, dev)
+    s0, m_k, ln0 = compare_lognum("4096x8192", uh, ul, gh, gl)
+    uhp = torch.cat([uh, torch.full((4096, 77), 1.0e10, dtype=torch.float32, device=dev)], 1)
+    ulp = torch.cat([ul, torch.zeros((4096, 77), dtype=torch.float32, device=dev)], 1)
+    compare_lognum("4096x8192 + 77 pad columns", uhp, ulp, gh, gl)
+    s1 = dd_to_f64(*lognum.lognum_fused_dd(uhp, ulp, gh, gl, m_k, return_sums=True))
+    if rel_err(s1, s0) > S_REL_TOL:
+        fail("pad columns changed K5's sums")
+    ln1 = dd_to_f64(*lognum.lognum_dd(uhp, ulp, *lognum.logden_dd(uhp, ulp, gh, gl), m_k))
+    phantom = float((ln1 - ln0).min())
+    if not phantom > 1.0e-4:
+        fail(f"K7 lost its phantom terms on pad columns (min shift {phantom:.3e})")
+    pad_only = torch.full((4096, 300), 1.0e10, dtype=torch.float32, device=dev)
+    s_pad = dd_to_f64(*lognum.lognum_fused_dd(pad_only, torch.zeros_like(pad_only), gh, gl, m_k,
+                                              return_sums=True))
+    if not bool((s_pad == 0).all()):
+        fail("an all-pad matrix gave K5 sums != 0")
+    del uh, ul, uhp, ulp, pad_only
+    compare_lognum(f"{FLAGSHIP_K}x{N_flag // 4} flagship shard",
+                   *make_planes(torch, FLAGSHIP_K, N_flag // 4, gen, dev))
+    torch.cuda.empty_cache()
+    planes = make_planes(torch, FLAGSHIP_K, N_flag, gen, dev)
+    compare_lognum(f"{FLAGSHIP_K}x{N_flag} flagship shape", *planes)
+    uh, ul, gh, gl = planes
+    ld = lognum.logden_dd(uh, ul, gh, gl)
+    m_k = lognum_shift(torch, uh, ld[0])
+    times["logden_dd"] = (median_ms(torch, lambda: lognum.logden_dd(*planes)),
+                          median_ms(torch, lambda: lognum.logden_dd_plain(*planes)))
+    times["lognum_dd"] = (median_ms(torch, lambda: lognum.lognum_dd(uh, ul, *ld, m_k)),
+                          median_ms(torch, lambda: lognum.lognum_dd_plain(uh, ul, *ld, m_k)))
+    times["lognum_fused_dd"] = (
+        median_ms(torch, lambda: lognum.lognum_fused_dd(*planes, m_k, return_sums=True)),
+        median_ms(torch, lambda: lognum.lognum_fused_dd_plain(*planes, m_k, return_sums=True)))
+    del planes, uh, ul, gh, gl, ld, m_k
+    torch.cuda.empty_cache()
+    emit("1_lognum_kernels", checks=lognum_checks, phantom_min_log_shift=phantom,
+         max_abs_err={k: err[k] for k in ln_names}, shape=[FLAGSHIP_K, N_flag],
+         ms={k: times[k][0] for k in ln_names}, plain_ms={k: times[k][1] for k in ln_names})
+
     # ---- phase 2: the main path at full size (K1 route, Theta on the card)
-    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK, gen, dev)
+    flag_seed = SEED + 1  # phase 4 rebuilds the same u_kn
+    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                torch.Generator(device=dev).manual_seed(flag_seed), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -359,11 +507,11 @@ def main():
     theta_s = time.perf_counter() - t0
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    route = mbar.solver_protocol[0]["method"]
-    info = mbar.solver_results[0]["info"] if route == "dd" else {}
+    route, shards = mesh_route(mbar)
+    info = mbar.solver_results[0]["info"] if route in ("dd", "mesh") else {}
     gnorm_per_n = info.get("gnorm", float("nan")) / N_flag
     summary = dict(
-        route=route, wsum_launches=flag_launches, split_launches=flag_split, init_s=init_s,
+        route=route, shards=shards, wsum_launches=flag_launches, split_launches=flag_split, init_s=init_s,
         theta_s=theta_s, phase1_s=info.get("phase1_s"), phase2_s=info.get("phase2_s"),
         f32_coarse_iterations=info.get("f32_coarse_iterations"),
         polish_iterations=info.get("polish_iterations"), deltas=info.get("deltas"),
@@ -384,7 +532,8 @@ def main():
     summary.update(theta_lowrank_card_s=lowrank_s, theta_dense_host_s=dense_host_s,
                    theta_max_abs_diff=theta_err, theta_scale=scale)
     emit("2_main_path", **summary)
-    if route != "dd" or flag_launches <= 0 or any(flag_split):
+    iters = info.get("polish_iterations", 0)
+    if route not in ("dd", "mesh") or iters <= 0 or flag_launches != shards * iters or any(flag_split):
         fail(f"the flagship did not take the dd route through K1 alone ({summary})")
     if not info["converged"] or not gnorm_per_n <= 1.0e-11:
         fail(f"dd solve not converged: gnorm/N = {gnorm_per_n:.3e}")
@@ -401,6 +550,8 @@ def main():
          adaptive_success=bool(ref.solver_results[0]["success"]))
     if not vs_f64 <= 1.0e-8:
         fail(f"dd Delta_f differs from the f64 adaptive solve by {vs_f64:.3e}")
+    f_flag, f_adaptive = mbar.f_k.copy(), ref.f_k.copy()
+    flag_walls = dict(init_s=init_s, theta_s=theta_s)
     del u_kn, mbar, ref, res
     torch.cuda.empty_cache()
 
@@ -424,14 +575,14 @@ def main():
     theta_s = time.perf_counter() - t0
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    route = mbar.solver_protocol[0]["method"]
-    info = mbar.solver_results[0]["info"] if route == "dd" else {}
+    route, shards = mesh_route(mbar)
+    info = mbar.solver_results[0]["info"] if route in ("dd", "mesh") else {}
     iters = info.get("polish_iterations", 0)
     gnorm_per_n = info.get("gnorm", float("nan")) / N_slice
     g64 = mbar_gradient(u_kn, mbar.N_k.astype(np.float64), mbar.f_k)
     g64_per_n = float(torch.linalg.norm(g64)) / N_slice
     summary = dict(
-        route=route, K=SLICE_K, N=N_slice, wsum_launches=slice_k1,
+        route=route, shards=shards, K=SLICE_K, N=N_slice, wsum_launches=slice_k1,
         column_shift_launches=slice_split[0], denom_sums_launches=slice_split[1],
         wsum_denom_launches=slice_split[2], init_s=init_s, theta_s=theta_s,
         phase1_s=info.get("phase1_s"), phase2_s=info.get("phase2_s"),
@@ -443,7 +594,7 @@ def main():
         max_abs_z=max_abs_z(res, fa),
     )
     emit("3_slice", **summary)
-    if route != "dd" or slice_k1 != 0 or iters <= 0 or slice_split != [iters] * 3:
+    if route not in ("dd", "mesh") or slice_k1 != 0 or iters <= 0 or slice_split != [shards * iters] * 3:
         fail(f"the slice did not take the split route on every polish iteration ({summary})")
     if not info["converged"] or not gnorm_per_n <= 1.0e-11 or not g64_per_n <= 1.0e-11:
         fail(f"slice solve not converged: gnorm/N = {gnorm_per_n:.3e}, f64 {g64_per_n:.3e}")
@@ -468,6 +619,111 @@ def main():
     del uh, ul, u_kn, mbar
     torch.cuda.empty_cache()
 
+    # ---- phase 4: the sample-sharded path at full width
+    n_cards = torch.cuda.device_count()
+    mesh = sharding.default_mesh() if n_cards >= 2 else sharding.default_mesh(4, device="cuda:0")
+    P = len(mesh.devices)
+    mesh_devs = sorted({d.index for d in mesh.devices})
+    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    sync_all(torch)
+    for i in mesh_devs:
+        torch.cuda.reset_peak_memory_stats(i)
+    all_counters = [(wsum, "WSUM_LAUNCHES")] + [(wsum_split, n) for n in counters] + [
+        (lognum, n) for n in ln_counters]
+    for mod, n in all_counters:
+        setattr(mod, n, 0)
+    t0 = time.perf_counter()
+    mbar = MBAR(u_kn, N_k, mesh=mesh)
+    sync_all(torch)
+    init_s = time.perf_counter() - t0
+    mbar_k1 = wsum.WSUM_LAUNCHES
+    t0 = time.perf_counter()
+    res = mbar.compute_free_energy_differences()
+    sync_all(torch)
+    theta_s = time.perf_counter() - t0
+    info = mbar.solver_results[0]["info"] if mbar.solver_results else {}
+    iters = info.get("polish_iterations", 0)
+
+    uh, ul = dev_split_planes(u_kn)
+    t0 = time.perf_counter()
+    f_dd, info_dd = sharding.sharded_solve_mbar_dd(uh, ul, N_k, mesh=mesh)
+    sync_all(torch)
+    direct_s = time.perf_counter() - t0
+    # K5 on the mesh at the converged f: its self-consistent fixed point
+    # f_k = -lognum_k checks the solve independently of its gradient
+    logN = torch.log(torch.as_tensor(N_k, dtype=torch.float64, device=dev))
+    gh, gl = dd_from_f64(torch.as_tensor(f_dd, device=dev) + logN)
+    m_k = torch.as_tensor(-f_dd, dtype=torch.float32, device=dev)
+    uh_s, ul_s, n_pad = sharding.shard_dd_planes(uh, ul, mesh)
+    k5_before = lognum.LOGNUM_FUSED_LAUNCHES
+    t0 = time.perf_counter()
+    ln_mesh = dd_to_f64(*sharding.sharded_fused_lognum_dd(uh_s, ul_s, gh, gl, m_k, mesh))
+    sync_all(torch)
+    k5_mesh_s = time.perf_counter() - t0
+    k5_per_call = lognum.LOGNUM_FUSED_LAUNCHES - k5_before
+    mesh_launches = {n: getattr(mod, n) for mod, n in all_counters}
+    peak = {f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in mesh_devs}
+    del uh_s, ul_s
+
+    ln_one = dd_to_f64(*lognum.lognum_fused_dd(uh, ul, gh, gl, m_k))
+    f_sci = (-ln_mesh + ln_mesh[0]).cpu().numpy()
+    stationarity = float(np.abs(f_sci - (f_dd - f_dd[0])).max())
+    k5_vs_one = float((ln_mesh - ln_one).abs().max())
+    df_vs_flag = float(np.abs(mbar.f_k - f_flag).max())
+    df_vs_f64 = float(np.abs(mbar.f_k - f_adaptive).max())
+    # a 3-shard pass on cuda:0: 999,424 samples leave pad columns
+    mesh3 = sharding.default_mesh(3, device="cuda:0")
+    f3, info3 = sharding.sharded_solve_mbar_dd(uh, ul, N_k, mesh=mesh3)
+    uh_s, ul_s, n_pad3 = sharding.shard_dd_planes(uh, ul, mesh3)
+    ln3 = dd_to_f64(*sharding.sharded_fused_lognum_dd(uh_s, ul_s, gh, gl, m_k, mesh3))
+    sync_all(torch)
+    del uh_s, ul_s
+    summary = dict(
+        shards=P, cards=n_cards, mesh=[str(d) for d in mesh.devices], route=mesh_route(mbar)[0],
+        init_s=init_s, theta_s=theta_s, phase2_walls=flag_walls,
+        phase1_s=info.get("phase1_s"), phase2_s=info.get("phase2_s"),
+        f32_coarse_iterations=info.get("f32_coarse_iterations"), polish_iterations=iters,
+        deltas=info.get("deltas"), converged=info.get("converged"),
+        gradient_norm_per_sample=info.get("gnorm", float("nan")) / N_flag,
+        wsum_launches_in_mbar=mbar_k1, max_abs_z=max_abs_z(res, fa),
+        delta_f_max_err_vs_phase2=df_vs_flag, delta_f_max_err_vs_f64=df_vs_f64,
+        direct=dict(
+            s=direct_s, converged=info_dd["converged"],
+            gradient_norm_per_sample=info_dd["gnorm"] / N_flag,
+            polish_iterations=info_dd["polish_iterations"], phase1_s=info_dd["phase1_s"],
+            phase2_s=info_dd["phase2_s"], f32_coarse_iterations=info_dd["f32_coarse_iterations"],
+            fallback_ran=bool(info_dd["f32_coarse_iterations"] and info_dd["f32_iterations"]),
+        ),
+        k5_on_mesh=dict(s=k5_mesh_s, launches_per_call=k5_per_call, n_pad=n_pad,
+                        stationarity_vs_f=stationarity, max_abs_diff_vs_one_call=k5_vs_one),
+        three_shards=dict(n_pad=n_pad3, converged=info3["converged"],
+                          polish_iterations=info3["polish_iterations"],
+                          f_max_diff_vs_mesh=float(np.abs(f3 - f_dd).max()),
+                          k5_max_abs_diff_vs_one_call=float((ln3 - ln_one).abs().max())),
+        launches=mesh_launches, max_memory_allocated=peak,
+    )
+    emit("4_mesh", **summary)
+    if mbar.mesh is not mesh or iters <= 0 or mbar_k1 != P * iters:
+        fail(f"MBAR(mesh=) did not run K1 once per shard per polish iteration ({summary})")
+    if not info["converged"] or not summary["gradient_norm_per_sample"] <= 1.0e-11:
+        fail("MBAR(mesh=) solve not converged")
+    if not (df_vs_flag <= MESH_DF_TOL and df_vs_f64 <= 1.0e-8):
+        fail(f"mesh Delta_f off: {df_vs_flag:.3e} vs phase 2, {df_vs_f64:.3e} vs f64")
+    check_free_energies(res, summary["max_abs_z"], "mesh")
+    if not info_dd["converged"] or not info_dd["gnorm"] / N_flag <= 1.0e-11:
+        fail("sharded_solve_mbar_dd not converged")
+    if k5_per_call != P or mesh_launches["LOGNUM_FUSED_LAUNCHES"] != P:
+        fail(f"sharded_fused_lognum_dd launched K5 {k5_per_call} times on {P} shards")
+    if not (stationarity <= 1.0e-10 and k5_vs_one <= LOG_ABS_TOL):
+        fail(f"K5 on the mesh: stationarity {stationarity:.3e}, vs one call {k5_vs_one:.3e}")
+    three = summary["three_shards"]
+    if not (n_pad3 > 0 and info3["converged"] and three["f_max_diff_vs_mesh"] <= MESH_DF_TOL
+            and three["k5_max_abs_diff_vs_one_call"] <= LOG_ABS_TOL):
+        fail(f"the 3-shard pass failed: {three}")
+    del uh, ul, u_kn, mbar, res
+    torch.cuda.empty_cache()
+
     # ---- the kernels line: launches from each one's main-path run
     K, Nf, Ns = FLAGSHIP_K, N_flag, N_slice
     KS = SLICE_K
@@ -483,6 +739,14 @@ def main():
         ("wsum_denom_dd", "pymbar_tpu_torch/csrc/wsum_split.cu",
          "pymbar_tpu/ops/pallas_kernels.py:890", slice_split[2],
          bound(8 * KS * Ns + 8 * KS + 12 * Ns, 8 * KS, 6 * KS * Ns, F64_OPS_PER_S)),
+        ("logden_dd", "pymbar_tpu_torch/csrc/lognum.cu", "pymbar_tpu/ops/pallas_kernels.py:189",
+         mesh_launches["LOGDEN_LAUNCHES"], bound(8 * K * Nf + 8 * K, 8 * Nf, 5 * K * Nf, F64_OPS_PER_S)),
+        ("lognum_dd", "pymbar_tpu_torch/csrc/lognum.cu", "pymbar_tpu/ops/pallas_kernels.py:261",
+         mesh_launches["LOGNUM_LAUNCHES"],
+         bound(8 * K * Nf + 8 * Nf + 4 * K, 8 * K, 5 * K * Nf, F64_OPS_PER_S)),
+        ("lognum_fused_dd", "pymbar_tpu_torch/csrc/lognum.cu",
+         "pymbar_tpu/ops/pallas_kernels.py:331", mesh_launches["LOGNUM_FUSED_LAUNCHES"],
+         bound(8 * K * Nf + 12 * K, 8 * K, 10 * K * Nf, F64_OPS_PER_S)),
     ]
     print(smi)
     print(json.dumps({"kernels": [dict(

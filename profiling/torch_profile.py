@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port, on one CUDA card.
 
-    python3 profiling/torch_profile.py [flagship] [slice]
+    python3 profiling/torch_profile.py [flagship] [slice] [mesh]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -23,6 +23,14 @@ For each (both when none is named) it warms up ``MBAR(u_kn, N_k)`` and
 * for the flagship, one ``torch.profiler`` trace of MBAR + free energies:
   device time per kernel name (top 15), and the device-busy share of the
   unprofiled wall of the same work.
+
+``mesh`` runs the flagship through ``MBAR(u_kn, N_k, mesh=...)`` on 1-D
+meshes of 2, 4 and 8 shards of cuda:0 (and of every card when there are
+several), each in turns against the single-device dd solve (no mesh,
+mesh, mesh, no mesh: init wall, the solve's phases, polish iterations, peak
+memory); times ``sharded_fused_lognum_dd`` on each mesh against one K5 call
+on the whole planes (median of 5 fenced calls); and takes the profiler
+trace of MBAR + free energies on the 4-shard mesh.
 """
 
 import json
@@ -117,7 +125,7 @@ def profile_config(torch, name, card):
     torch.cuda.empty_cache()
 
 
-def device_trace(torch, u, N_k, walls):
+def device_trace(torch, u, N_k, walls, mesh=None):
     """Device time per kernel over one MBAR + free energies, and the
     device-busy share of the unprofiled wall of the same work."""
     from torch.profiler import ProfilerActivity, profile
@@ -127,7 +135,7 @@ def device_trace(torch, u, N_k, walls):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        MBAR(u, N_k).compute_free_energy_differences()
+        MBAR(u, N_k, mesh=mesh).compute_free_energy_differences()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -155,26 +163,89 @@ def device_trace(torch, u, N_k, walls):
     )
 
 
+def median_ms(torch, fn, reps=5):
+    fn()
+    times = [timed(torch, fn)[0] * 1e3 for _ in range(reps)]
+    return sorted(times)[reps // 2]
+
+
+def profile_mesh(torch, card):
+    """The flagship on 1-D meshes against the single-device dd solve."""
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.ops.doubledouble import dd_from_f64
+    from pymbar_tpu_torch.ops.lognum import lognum_fused_dd
+    from pymbar_tpu_torch.parallel import default_mesh, shard_dd_planes, sharded_fused_lognum_dd
+    from pymbar_tpu_torch.solvers_large import dev_split_planes
+
+    dev = torch.device("cuda", 0)
+    u, N_k = oscillators(torch, *CONFIGS["flagship"][:2], dev)
+    meshes = {f"{P} shards of cuda:0": default_mesh(P, device="cuda:0") for P in (2, 4, 8)}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = default_mesh()
+    single = dict(solver_protocol=(dict(method="dd"),))  # no mesh, whatever the card count
+
+    def run(mesh):
+        torch.cuda.reset_peak_memory_stats()
+        t, m = timed(torch, lambda: MBAR(u, N_k, **(single if mesh is None else dict(mesh=mesh))))
+        info = m.solver_results[0]["info"]
+        return m, dict(init_s=t, phase1_s=info["phase1_s"], phase2_s=info["phase2_s"],
+                       polish_iterations=info["polish_iterations"],
+                       max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    for mesh in (None, *meshes.values()):  # warm-up
+        run(mesh)[0].compute_free_energy_differences()
+    for label, mesh in meshes.items():
+        turns = {"no mesh": [], label: []}
+        for which in ("no mesh", label, label, "no mesh"):
+            turns[which].append(run(None if which == "no mesh" else mesh)[1])
+        print(json.dumps(dict(config="mesh", card=card, mesh=label, turns=turns)), flush=True)
+
+    m, _ = run(None)
+    uh, ul = dev_split_planes(u)
+    logN = torch.log(torch.as_tensor(N_k, dtype=torch.float64, device=dev))
+    gh, gl = dd_from_f64(torch.as_tensor(m.f_k, device=dev) + logN)
+    m_k = torch.as_tensor(-m.f_k, dtype=torch.float32, device=dev)
+    k5_ms = {"one call": median_ms(torch, lambda: lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True))}
+    for label, mesh in meshes.items():
+        uh_s, ul_s, _ = shard_dd_planes(uh, ul, mesh)
+        k5_ms[label] = median_ms(torch, lambda: sharded_fused_lognum_dd(uh_s, ul_s, gh, gl, m_k, mesh))
+        del uh_s, ul_s
+    del uh, ul
+    print(json.dumps(dict(config="mesh", card=card, k5_ms=k5_ms)), flush=True)
+
+    mesh4 = meshes["4 shards of cuda:0"]
+    walls = {}
+    walls["mbar_init_s"], m = timed(torch, lambda: MBAR(u, N_k, mesh=mesh4))
+    walls["free_energies_s"], _ = timed(torch, lambda: m.compute_free_energy_differences())
+    print(json.dumps(dict(config="mesh", card=card, mesh="4 shards of cuda:0", **walls,
+                          **device_trace(torch, u, N_k, walls, mesh=mesh4))), flush=True)
+    del u, m
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    names = sys.argv[1:] or list(CONFIGS)
-    unknown = [n for n in names if n not in CONFIGS]
+    names = sys.argv[1:] or [*CONFIGS, "mesh"]
+    unknown = [n for n in names if n not in CONFIGS and n != "mesh"]
     if unknown:
-        raise SystemExit(f"unknown configuration(s) {unknown}; choose from {list(CONFIGS)}")
+        raise SystemExit(f"unknown configuration(s) {unknown}; choose from {[*CONFIGS, 'mesh']}")
     sys.path.insert(0, REPO)
     from pymbar_tpu_torch.ops import _build
 
-    for lib in ("wsum", "wsum_split"):  # build outside every timed region
+    for lib in ("wsum", "wsum_split", "lognum"):  # build outside every timed region
         _build.load(lib)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     for name in names:
-        profile_config(torch, name, card)
+        if name == "mesh":
+            profile_mesh(torch, card)
+        else:
+            profile_config(torch, name, card)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,10 @@
 The counterpart of :class:`pymbar_tpu.mbar.MBAR` (reference pymbar 4.x
 mbar.py:64-1988) for the solve and the free-energy differences: the same
 constructor surface, result-dictionary schema and uncertainty methods
-None / 'svd-ew' / 'approximate'.  Expectations, entropy, overlap, BAR
-initialization, bootstrap and the multi-device mesh are still to be ported
-and raise :class:`ParameterError` where the constructor would need them.
+None / 'svd-ew' / 'approximate', and the solve on a 1-D device mesh
+(``mesh=``).  Expectations, entropy, overlap, BAR initialization and
+bootstrap are still to be ported and raise :class:`ParameterError` where the
+constructor would need them.
 
 ``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
 is, a numpy array goes to ``device`` (default: the CUDA card; without one,
@@ -21,6 +22,7 @@ import torch
 
 from pymbar_tpu_torch import solvers as mbar_solvers
 from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization
+from pymbar_tpu_torch.parallel.sharding import default_mesh, sharded_solve_mbar_for_all_states
 from pymbar_tpu_torch.solvers import (
     BOOTSTRAP_SOLVER_PROTOCOL,
     DEFAULT_SOLVER_PROTOCOL,
@@ -82,15 +84,25 @@ class MBAR:
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
     a numpy ``u_kn`` is placed (default "cuda", and without a card a
     :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
-    device is used as it is).  ``initialize="BAR"``, ``n_bootstraps > 0``
-    and ``mesh`` are not yet ported and raise :class:`ParameterError`.
+    device is used as it is).  ``initialize="BAR"`` and ``n_bootstraps > 0``
+    (with or without a mesh) are not yet ported and raise
+    :class:`ParameterError`.
 
-    A CUDA ``u_kn`` of at least ``_DD_ROUTE_BYTES`` with no explicit
+    ``mesh``: a :class:`pymbar_tpu_torch.parallel.Mesh` solves the sampled
+    states by the sample-sharded double-word solver
+    (:func:`pymbar_tpu_torch.parallel.sharding.sharded_solve_mbar_for_all_states`);
+    "auto" takes every visible card when there are several, else no mesh.
+    An explicit ``solver_protocol`` wins over a mesh, with a warning.
+    ``self.mesh`` holds the mesh used (None when none).  Without a mesh, a
+    CUDA ``u_kn`` of at least ``_DD_ROUTE_BYTES`` with no explicit
     ``solver_protocol`` is solved by the two-phase double-word solver
     (:func:`pymbar_tpu_torch.solvers_large.solve_mbar_dd`, whose polish runs
-    on the hand-written ``wsum_dd`` kernel); otherwise the protocol runs as
-    in the JAX package.  ``solver_protocol`` holds the resolved protocol and
-    ``solver_results`` each stage's result dict.
+    on the hand-written ``wsum_dd`` kernel), sharded over every card when
+    there are several; otherwise the protocol runs as in the JAX package.
+    ``solver_protocol`` holds the resolved protocol (the default one on the
+    mesh route, as in the JAX package) and ``solver_results`` each stage's
+    result dict.  ``u_kn`` itself stays on its one device: the free
+    energies stream it there.
     """
 
     def __init__(
@@ -114,8 +126,6 @@ class MBAR:
             raise ParameterError("n_bootstraps > 0 is not yet ported to pymbar_tpu_torch")
         if n_bootstraps < 0:
             logger.warning("n_bootstraps must be an integer >= 0")
-        if mesh is not None:
-            raise ParameterError("mesh is not yet ported to pymbar_tpu_torch")
         if initialize == "BAR":
             raise ParameterError("initialize='BAR' is not yet ported to pymbar_tpu_torch")
         del bootstrap_solver_protocol  # only used with bootstraps
@@ -164,21 +174,45 @@ class MBAR:
         else:
             self._initializeFreeEnergies(verbose, method=initialize)
 
-        # The route gate: large CUDA problems take the double-word solver.
+        # The mesh front door: mesh="auto" takes every visible card when
+        # there are several; a Mesh is honored as it is.  An explicit
+        # solver_protocol wins over the mesh, with a warning.
+        if mesh == "auto":
+            mesh = default_mesh() if torch.cuda.device_count() > 1 else None
+        self.mesh = mesh
+        if mesh is not None and solver_protocol is not None:
+            logger.warning(
+                "Both mesh and an explicit solver_protocol were given; the "
+                "explicit protocol runs on the default device and the mesh "
+                "is ignored for the solve."
+            )
+            self.mesh = mesh = None
+
+        # The route gate: large CUDA problems with no protocol take the
+        # double-word solver, sharded over every card when there are several.
         if (
             solver_protocol is None
+            and mesh is None
             and self.u_kn.is_cuda
             and self.u_kn.nbytes >= _DD_ROUTE_BYTES
         ):
-            solver_protocol = (dict(method="dd", options=dict()),)
+            if torch.cuda.device_count() > 1:
+                self.mesh = mesh = default_mesh()
+            else:
+                solver_protocol = (dict(method="dd", options=dict()),)
 
         self.solver_protocol = self._resolve_protocol(
             solver_protocol, DEFAULT_SOLVER_PROTOCOL, maximum_iterations
         )
         self.n_bootstraps = 0
-        self.f_k, self.solver_results = mbar_solvers.solve_mbar_for_all_states(
-            self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol
-        )
+        if mesh is not None:
+            self.f_k, self.solver_results = sharded_solve_mbar_for_all_states(
+                self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh
+            )
+        else:
+            self.f_k, self.solver_results = mbar_solvers.solve_mbar_for_all_states(
+                self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol
+            )
 
         if self.verbose:
             logger.info(f"Final dimensionless free energies f_k = {self.f_k}")
@@ -224,6 +258,7 @@ class MBAR:
         self.states_with_samples = np.where(self.N_k != 0)[0].astype(np.int64)
         self.K_nonzero = self.states_with_samples.size
         self.n_bootstraps = 0
+        self.mesh = None
         self.solver_protocol = ()
         self.solver_results = []
         return self

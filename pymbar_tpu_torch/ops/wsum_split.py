@@ -58,11 +58,12 @@ _MIN_COLS_PER_SPLIT = 2048
 _MAX_GRID_Y = 65535
 
 
-def check_planes(fn, u_hi, u_lo, g_hi, g_lo, **n_vectors):
-    """Validate the dd planes (K, N), the (K,) g pair and optional (N,)
-    vectors: float32, contiguous, one device.  ``u_lo``/``g_lo`` may be None
-    where ``fn`` takes no lo plane.  Raises TypeError / ValueError."""
-    named = dict(u_hi=u_hi, u_lo=u_lo, g_hi=g_hi, g_lo=g_lo, **n_vectors)
+def check_planes(fn, u_hi, u_lo, g_hi, g_lo, m_k=None, **n_vectors):
+    """Validate the dd planes (K, N), the (K,) g pair, an optional (K,) m_k
+    and optional (N,) vectors: float32, contiguous, one device.  ``u_lo`` and
+    the g pair may be None where ``fn`` takes none.  Raises TypeError /
+    ValueError."""
+    named = dict(u_hi=u_hi, u_lo=u_lo, g_hi=g_hi, g_lo=g_lo, m_k=m_k, **n_vectors)
     for name, t in named.items():
         if t is None:
             continue
@@ -82,7 +83,7 @@ def check_planes(fn, u_hi, u_lo, g_hi, g_lo, **n_vectors):
     K, N = u_hi.shape
     if K == 0 or N == 0:
         raise ValueError(f"{fn}: empty planes {tuple(u_hi.shape)}")
-    for name, t in (("g_hi", g_hi), ("g_lo", g_lo)):
+    for name, t in (("g_hi", g_hi), ("g_lo", g_lo), ("m_k", m_k)):
         if t is not None and t.shape != (K,):
             raise ValueError(f"{fn}: {name} must be ({K},), got {tuple(t.shape)}")
     for name, t in n_vectors.items():

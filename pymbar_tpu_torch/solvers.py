@@ -134,14 +134,25 @@ def _adaptive_candidates(u_kn, N_k, f_k, gamma, nr_method="lstsq"):
     """One adaptive iteration's candidate steps and their gradient norms.
 
     Returns (f_sci, g_sci, gnorm_sci, f_nr, g_nr, gnorm_nr) as the
-    reference's jax_core_adaptive (mbar_solvers.py:670-694).  nr_method
-    'lstsq' reproduces the reference (min-norm solve of the singular full
-    Hessian, then re-pin f_0); 'chol' solves the nonsingular reduced system
-    -H[1:, 1:] by Cholesky (NaN when it is not positive definite, as JAX's
-    cho_factor).
+    reference's jax_core_adaptive (mbar_solvers.py:670-694); nr_method as
+    :func:`_newton_direction`.
     """
     _, g, f_sci = core_stats(u_kn, N_k, f_k)
-    H = mbar_hessian(u_kn, N_k, f_k)
+    f_nr = f_k - gamma * _newton_direction(mbar_hessian(u_kn, N_k, f_k), g, nr_method)
+
+    f_sci = f_sci - f_sci[0]
+    g_sci = mbar_gradient(u_kn, N_k, f_sci)
+    g_nr = mbar_gradient(u_kn, N_k, f_nr)
+    return f_sci, g_sci, torch.dot(g_sci, g_sci), f_nr, g_nr, torch.dot(g_nr, g_nr)
+
+
+def _newton_direction(H, g, nr_method="lstsq"):
+    """H^-1 g with f_0 re-pinned: the Newton step of an adaptive iteration.
+
+    'lstsq' is the reference's min-norm solve of the singular full Hessian;
+    'chol' solves the reduced system H[1:, 1:] by Cholesky (NaN when it is
+    not positive definite, as JAX's cho_factor).
+    """
     if nr_method == "chol":
         L, info = torch.linalg.cholesky_ex(H[1:, 1:])
         L = torch.where(info == 0, L, torch.nan)
@@ -149,13 +160,7 @@ def _adaptive_candidates(u_kn, N_k, f_k, gamma, nr_method="lstsq"):
         Hinvg = torch.cat([torch.zeros(1, dtype=g.dtype, device=g.device), dx1])
     else:
         Hinvg = _lstsq_min_norm(H, g)
-    Hinvg = Hinvg - Hinvg[0]
-    f_nr = f_k - gamma * Hinvg
-
-    f_sci = f_sci - f_sci[0]
-    g_sci = mbar_gradient(u_kn, N_k, f_sci)
-    g_nr = mbar_gradient(u_kn, N_k, f_nr)
-    return f_sci, g_sci, torch.dot(g_sci, g_sci), f_nr, g_nr, torch.dot(g_nr, g_nr)
+    return Hinvg - Hinvg[0]
 
 
 def host_adaptive_metrics(f_new, f_old, f_sci, f_nr, tol, delta_mode="relative"):

@@ -19,6 +19,7 @@ import pymbar_tpu_torch
 from pymbar_tpu_torch import mbar as tmbar
 from pymbar_tpu_torch import solvers_large as tsl
 from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization
+from pymbar_tpu_torch.parallel import default_mesh
 from pymbar_tpu_torch.utils import ParameterError
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -212,8 +213,9 @@ def test_parameter_errors(probe):
         kw["initialize"] = "BAR"
     elif probe == "bootstraps":
         kw["n_bootstraps"] = 10
-    elif probe == "mesh":
-        kw["mesh"] = "auto"
+    elif probe == "mesh":  # the mesh bootstrap is not ported yet
+        kw["mesh"] = default_mesh(2, device="cpu")
+        kw["n_bootstraps"] = 10
     elif probe == "device_mismatch":
         u, kw = torch.from_numpy(u), dict(device="meta")
     if probe in ("svd", "bootstrap_uncertainty"):
