@@ -6,7 +6,8 @@
 Phases, one JSON line each; any failure raises and exits non-zero.
 
 0. The card's name and power limit (nvidia-smi); build csrc/wsum.cu,
-   csrc/wsum_split.cu and csrc/lognum.cu with nvcc, in parallel.
+   csrc/wsum_split.cu, csrc/lognum.cu and csrc/roofline.cu with nvcc, in
+   parallel.
 1. Each kernel against its plain PyTorch version on the same CUDA tensors.
    K1 wsum_dd: relative error of S <= 1e-13 at several shapes, pad columns
    change nothing, an all-pad matrix gives S == 0 exactly, the launch count
@@ -25,6 +26,17 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    K1 (<= 1e-12), K5 unmoved by pad columns and exactly 0 on an all-pad
    matrix, K7's phantom terms kept on pad columns; times at the flagship.
    Times are medians of 5 synchronize-fenced calls.
+   1d. The roofline probes (K8a-c): fma_chain in float32 and float64 over 2
+   steps and exp_chain over 6 against their plain recurrences (16 ulp; x^2
+   doubles a relative error each step, the exp map contracts), the
+   pinned-tile weight sum at (1024, 512, 64 steps), (4096, 128, 32) and
+   (5, 16, 3) against steps x S(tile) and, at one step, against K1 itself
+   (1e-13 relative); then the probe path, each probe with its launch count
+   set to 0 before it: FMA FLOP/s (float32, float64), f64 exps/s, K8b's
+   and K8c's elements/s.  The float64 FMA rate must not exceed 105% of
+   34 TFLOP/s (nor float32 105% of 67), and each pinned ceiling must reach
+   K1's streaming element rate at its K (the flagship; K = 4096 x 262,144).
+   Prints K1's roofline fraction (its flagship element rate over K8b's).
 2. The main path at full size: the flagship problem of bench.py (K = 1024
    harmonic-oscillator states x 976 samples, ~8 GB of float64 u_kn) made
    on the card from a seed, then MBAR(u_kn, N_k) with the default protocol
@@ -53,6 +65,18 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    f_k - f_0, within 1e-12 of one K5 call on the whole planes, one K5
    launch per shard); and a 3-shard pass on cuda:0, where 999,424 samples
    leave pad columns.  Peak device memory of each card.
+5. The bootstrap at the flagship: phase 2's u_kn through MBAR(u_kn, N_k,
+   n_bootstraps=64, rseed=SEED), which must take the dd counts route
+   (bootstrap_at_floor set), then the free energies with the bootstrap
+   uncertainty: f_k within 1e-10 of phase 2's, dDelta_f finite, the median
+   over states of sigma_boot / sigma_asym (phase 2's svd-ew) in [0.8, 1.25],
+   |z| < 6 with the bootstrap sigma.  bootstrap_polish_dd on the planes with
+   the base chord factor and the same counts at tol 1e-12 and 1e-7: no
+   failure, n_fail + n_at_floor + n_tol_converged = 64, and the two within
+   0.01 x the smallest sigma_boot; the serial mode on the first 4
+   replicates within 5e-11 of the batched ones, with one K1 launch per
+   polish iteration.  Reps/s at both tolerances, the phase walls, the fast
+   and exact iterations and the peak memory.
 
 Then the card, the kernels line and {"ok": true, "device": {...}} close the
 output.  Without a CUDA card, or without the repository beside this file,
@@ -74,7 +98,14 @@ FLAGSHIP_NPK = 976
 SLICE_K = 8192
 SLICE_NPK = 40
 S_REL_TOL = 1.0e-13
-SOURCES = ("wsum", "wsum_split", "lognum")
+CHAIN_ULPS = 16
+# The probe path: chain lengths (each timed launch runs ~4-20 ms), and the
+# pinned shapes (K, tile, steps) of the JAX bench's K8b and K8c.
+FMA_STEPS = 2**16
+EXP_STEPS = 2**12
+PINNED = {"wsum_pinned_1024x512": (1024, 512, 8192), "wsum_pinned_4096x128": (4096, 128, 16384)}
+N_BOOT = 64
+SOURCES = ("wsum", "wsum_split", "lognum", "roofline")
 LOG_ABS_TOL = 1.0e-12
 MESH_DF_TOL = 5.0e-10
 
@@ -213,11 +244,16 @@ def main():
     import numpy as np
 
     from pymbar_tpu_torch import MBAR
-    from pymbar_tpu_torch.ops import _build, lognum, wsum, wsum_split
+    from pymbar_tpu_torch.mbar import bootstrap_counts
+    from pymbar_tpu_torch.ops import _build, lognum, roofline, wsum, wsum_split
     from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
     from pymbar_tpu_torch.parallel import sharding
     from pymbar_tpu_torch.ops.mbar_core import mbar_gradient, mbar_gram_normalization
-    from pymbar_tpu_torch.solvers_large import dev_split_planes, solve_mbar_dd
+    from pymbar_tpu_torch.solvers_large import (
+        bootstrap_polish_dd,
+        dev_split_planes,
+        solve_mbar_dd,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -485,6 +521,118 @@ def main():
          max_abs_err={k: err[k] for k in ln_names}, shape=[FLAGSHIP_K, N_flag],
          ms={k: times[k][0] for k in ln_names}, plain_ms={k: times[k][1] for k in ln_names})
 
+    # ---- phase 1d: the roofline probes K8a-c against their plain versions,
+    # then the probe path
+    probe_checks = []
+    n_chain = roofline.chain_width(dev)
+
+    def chain_start(dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand(n_chain, generator=g, dtype=torch.float64, device=dev).mul_(0.4).add_(
+            0.5).to(dtype)
+
+    def check_chain(name, out, ref, dtype):
+        e = rel_err(out.double(), ref.double())
+        err[name] = max(err.get(name, 0.0), float((out - ref).abs().max()))
+        probe_checks.append(dict(kernel=name, rel_err=e))
+        if not e <= CHAIN_ULPS * torch.finfo(dtype).eps:
+            fail(f"{name}: kernel vs plain relative error {e:.3e} > {CHAIN_ULPS} ulp")
+
+    for name, dtype in (("fma_chain_f32", torch.float32), ("fma_chain_f64", torch.float64)):
+        x0 = chain_start(dtype, 1)
+        check_chain(name, roofline.fma_chain(x0, roofline.FMA_C, 2),
+                    roofline.fma_chain_plain(x0, roofline.FMA_C, 2), dtype)
+    x0 = chain_start(torch.float64, 2)
+    check_chain("exp_chain_f64", roofline.exp_chain(x0, 6), roofline.exp_chain_plain(x0, 6),
+                torch.float64)
+    err["wsum_pinned"] = 0.0
+    for K_p, tile, steps in ((1024, 512, 64), (4096, 128, 32), (5, 16, 3)):
+        tp = roofline.pinned_tile(K_p, tile, dev, seed=K_p)
+        S = dd_to_f64(*roofline.wsum_pinned(*tp, steps))
+        S_ref = dd_to_f64(*roofline.wsum_pinned_plain(*tp, steps))
+        e = rel_err(S, S_ref)
+        err["wsum_pinned"] = max(err["wsum_pinned"], float((S - S_ref).abs().max()))
+        probe_checks.append(dict(kernel="wsum_pinned", K=K_p, tile=tile, steps=steps, rel_err=e))
+        if not e <= S_REL_TOL:
+            fail(f"wsum_pinned ({K_p}, {tile}, {steps}): vs plain {e:.3e} > {S_REL_TOL:g}")
+        if steps == 64:
+            e1 = rel_err(dd_to_f64(*roofline.wsum_pinned(*tp, 1)), dd_to_f64(*wsum.wsum_dd(*tp)))
+            probe_checks.append(dict(kernel="wsum_pinned", case="one step vs K1", rel_err=e1))
+            if not e1 <= S_REL_TOL:
+                fail(f"wsum_pinned at one step differs from K1 by {e1:.3e}")
+    torch.cuda.synchronize()
+
+    # K1 streaming at K = 4096, the K of K8c's ceiling
+    N_4k = 2**18
+    planes = make_planes(torch, 4096, N_4k, gen, dev)
+    k1_4k_ms = median_ms(torch, lambda: wsum.wsum_dd(*planes))
+    del planes
+    torch.cuda.empty_cache()
+
+    # the probe path: each probe with its launch counts set to 0 just before it
+    probe_runs = {}
+
+    def run_probe(name, counter, fn):
+        for c in ("FMA_LAUNCHES", "EXP_LAUNCHES", "PINNED_LAUNCHES"):
+            setattr(roofline, c, 0)
+        rate = fn()
+        torch.cuda.synchronize()
+        probe_runs[name] = dict(rate=rate, launches=getattr(roofline, counter))
+
+    run_probe("fma_chain_f32", "FMA_LAUNCHES",
+              lambda: roofline.measure_fma_peak(torch.float32, steps=FMA_STEPS))
+    run_probe("fma_chain_f64", "FMA_LAUNCHES",
+              lambda: roofline.measure_fma_peak(torch.float64, steps=FMA_STEPS))
+    run_probe("exp_chain_f64", "EXP_LAUNCHES", lambda: roofline.measure_exp_rate(steps=EXP_STEPS))
+    run_probe("wsum_pinned_1024x512", "PINNED_LAUNCHES", roofline.measure_wsum_ceiling)
+    run_probe("wsum_pinned_4096x128", "PINNED_LAUNCHES", roofline.measure_wsum_big_ceiling)
+
+    # one call's time at the probe path's shapes (its work over the best
+    # rate), and the plain version's on the same shapes (one timed call)
+    x32, x64 = chain_start(torch.float32, 3), chain_start(torch.float64, 3)
+    plain = {
+        "fma_chain_f32": (2.0 * n_chain * FMA_STEPS,
+                          lambda: roofline.fma_chain_plain(x32, roofline.FMA_C, FMA_STEPS)),
+        "fma_chain_f64": (2.0 * n_chain * FMA_STEPS,
+                          lambda: roofline.fma_chain_plain(x64, roofline.FMA_C, FMA_STEPS)),
+        "exp_chain_f64": (float(n_chain) * EXP_STEPS,
+                          lambda: roofline.exp_chain_plain(x64, EXP_STEPS)),
+    }
+    for name, (work, fn) in plain.items():
+        times[name] = (work / probe_runs[name]["rate"] * 1e3, median_ms(torch, fn, reps=1))
+    del x32, x64, plain
+    for name, (K_p, tile, steps) in PINNED.items():
+        tp = roofline.pinned_tile(K_p, tile, dev)
+        times[name] = (K_p * tile * steps / probe_runs[name]["rate"] * 1e3,
+                       median_ms(torch, lambda: roofline.wsum_pinned_plain(*tp, steps)))
+        err[name] = err["wsum_pinned"]
+
+    k1_rate = FLAGSHIP_K * N_flag / (times["wsum_dd"][0] * 1e-3)
+    k1_4k_rate = 4096 * N_4k / (k1_4k_ms * 1e-3)
+    ceiling = probe_runs["wsum_pinned_1024x512"]["rate"]
+    ceiling_4k = probe_runs["wsum_pinned_4096x128"]["rate"]
+    rates = dict(
+        fma_f32_flops=probe_runs["fma_chain_f32"]["rate"],
+        fma_f64_flops=probe_runs["fma_chain_f64"]["rate"],
+        exp_f64_per_s=probe_runs["exp_chain_f64"]["rate"],
+        k8b_elements_per_s=ceiling, k8c_elements_per_s=ceiling_4k,
+        k1_flagship_elements_per_s=k1_rate, k1_4096_elements_per_s=k1_4k_rate,
+        k1_4096_ms=k1_4k_ms, k1_roofline_fraction=k1_rate / ceiling,
+        k1_4096_roofline_fraction=k1_4k_rate / ceiling_4k,
+    )
+    emit("1_roofline_probes", checks=probe_checks, chain_width=n_chain, fma_steps=FMA_STEPS,
+         exp_steps=EXP_STEPS, launches={k: v["launches"] for k, v in probe_runs.items()},
+         ms={k: times[k][0] for k in probe_runs}, plain_ms={k: times[k][1] for k in probe_runs},
+         **rates)
+    if not rates["fma_f64_flops"] <= 1.05 * F64_OPS_PER_S:
+        fail(f"FP64 FMA rate {rates['fma_f64_flops']:.3e} exceeds 105% of the data sheet's")
+    if not rates["fma_f32_flops"] <= 1.05 * F32_OPS_PER_S:
+        fail(f"FP32 FMA rate {rates['fma_f32_flops']:.3e} exceeds 105% of the data sheet's")
+    if not (ceiling >= k1_rate and ceiling_4k >= k1_4k_rate):
+        fail(f"a pinned ceiling lies below K1's streaming rate: {rates}")
+    if any(v["launches"] <= 0 for v in probe_runs.values()):
+        fail(f"a probe launched no kernel: {probe_runs}")
+
     # ---- phase 2: the main path at full size (K1 route, Theta on the card)
     flag_seed = SEED + 1  # phase 4 rebuilds the same u_kn
     u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
@@ -551,6 +699,7 @@ def main():
     if not vs_f64 <= 1.0e-8:
         fail(f"dd Delta_f differs from the f64 adaptive solve by {vs_f64:.3e}")
     f_flag, f_adaptive = mbar.f_k.copy(), ref.f_k.copy()
+    sigma_asym = res["dDelta_f"][0, 1:].copy()
     flag_walls = dict(init_s=init_s, theta_s=theta_s)
     del u_kn, mbar, ref, res
     torch.cuda.empty_cache()
@@ -724,6 +873,91 @@ def main():
     del uh, ul, u_kn, mbar, res
     torch.cuda.empty_cache()
 
+    # ---- phase 5: the bootstrap at the flagship (dd counts route)
+    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wsum.WSUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    mbar = MBAR(u_kn, N_k, n_bootstraps=N_BOOT, rseed=SEED)
+    torch.cuda.synchronize()
+    boot_init_s = time.perf_counter() - t0
+    boot_k1 = wsum.WSUM_LAUNCHES
+    t0 = time.perf_counter()
+    res = mbar.compute_free_energy_differences(uncertainty_method="bootstrap")
+    boot_fe_s = time.perf_counter() - t0
+    boot_peak = torch.cuda.max_memory_allocated()
+    info = mbar.solver_results[0]["info"]
+    sigma_boot = res["dDelta_f"][0, 1:]
+    ratio = float(np.median(sigma_boot / sigma_asym))
+    df_boot = float(np.abs(mbar.f_k - f_flag).max())
+    z_boot = max_abs_z(res, fa)
+    summary = dict(
+        route=mesh_route(mbar)[0], n_bootstraps=N_BOOT, init_s=boot_init_s,
+        free_energies_s=boot_fe_s, wsum_launches=boot_k1,
+        polish_iterations=info.get("polish_iterations"),
+        n_at_floor=info.get("bootstrap_n_at_floor"),
+        n_tol_converged=info.get("bootstrap_n_tol_converged"),
+        delta_f_max_err_vs_phase2=df_boot, sigma_boot_over_asym_median=ratio,
+        sigma_boot_min=float(sigma_boot.min()), max_abs_z=z_boot, max_memory_allocated=boot_peak,
+    )
+    emit("5_bootstrap_mbar", **summary)
+    if mbar.bootstrap_at_floor is None or summary["route"] != "dd" or boot_k1 <= 0:
+        fail(f"the flagship bootstrap did not take the dd counts route ({summary})")
+    if not df_boot <= 1.0e-10:
+        fail(f"bootstrap MBAR f_k differs from phase 2's by {df_boot:.3e}")
+    if not 0.8 <= ratio <= 1.25:
+        fail(f"median sigma_boot / sigma_asym = {ratio:.3f} outside [0.8, 1.25]")
+    check_free_energies(res, z_boot, "bootstrap")
+
+    uh, ul = dev_split_planes(u_kn)
+    counts = bootstrap_counts(mbar.bootstrap_rints, mbar.N)
+    direct = {}
+    for tol in (1.0e-12, 1.0e-7):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fb, nf, bi = bootstrap_polish_dd(uh, ul, N_k, mbar.f_k, info["hinv"], counts, tol=tol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        direct[tol] = (fb, nf, bi, wall, torch.cuda.max_memory_allocated())
+    (fb12, nf12, bi12, s12, peak12), (fb7, nf7, bi7, s7, _) = direct[1.0e-12], direct[1.0e-7]
+    reftol_dev = float(np.abs(fb7 - fb12).max())
+    before = wsum.WSUM_LAUNCHES
+    fs, nfs, bis = bootstrap_polish_dd(uh, ul, N_k, mbar.f_k, info["hinv"], counts[:4],
+                                       mode="serial")
+    torch.cuda.synchronize()
+    serial_launches = wsum.WSUM_LAUNCHES - before
+    serial_dev = float(np.abs(fs - fb12[:4]).max())
+    vs_mbar = float(np.abs((fb12 - fb12[:, :1]) - mbar.f_k_boots).max())
+    summary = dict(
+        reps_per_s={"1e-12": N_BOOT / s12, "1e-7": N_BOOT / s7}, walls_s={"1e-12": s12, "1e-7": s7},
+        phase_walls={"1e-12": bi12["phase_walls"], "1e-7": bi7["phase_walls"]},
+        fast_iters={"1e-12": bi12["fast_iters"], "1e-7": bi7["fast_iters"]},
+        exact_iters={"1e-12": bi12["exact_iters"].tolist(), "1e-7": bi7["exact_iters"].tolist()},
+        n_fail={"1e-12": nf12, "1e-7": nf7},
+        n_at_floor={"1e-12": bi12["n_at_floor"], "1e-7": bi7["n_at_floor"]},
+        n_tol_converged={"1e-12": bi12["n_tol_converged"], "1e-7": bi7["n_tol_converged"]},
+        reftol_max_dev=reftol_dev, reftol_limit=0.01 * float(sigma_boot.min()),
+        vs_mbar_f_k_boots=vs_mbar, serial_max_dev_first4=serial_dev,
+        serial_polish_iterations=bis["polish_iterations"].tolist(),
+        serial_wsum_launches=serial_launches, max_memory_allocated_1e12=peak12,
+    )
+    emit("5_bootstrap_polish", **summary)
+    for tol, (_fb, nf, bi, _s, _p) in direct.items():
+        if nf != 0 or nf + bi["n_at_floor"] + bi["n_tol_converged"] != N_BOOT:
+            fail(f"bootstrap accounting at tol {tol:g}: {summary}")
+    if not reftol_dev < 0.01 * float(sigma_boot.min()):
+        fail(f"tol 1e-7 replicates stray {reftol_dev:.3e} from tol 1e-12 ones")
+    if not (nfs == 0 and serial_dev <= 5.0e-11):
+        fail(f"serial replicates differ from batched by {serial_dev:.3e} (n_fail {nfs})")
+    if serial_launches != int(bis["polish_iterations"].sum()) or serial_launches <= 0:
+        fail(f"serial mode launched K1 {serial_launches} times for "
+             f"{bis['polish_iterations'].tolist()} polish iterations")
+    del uh, ul, u_kn, mbar, res, counts, direct, fb12, fb7, fs
+    torch.cuda.empty_cache()
+
     # ---- the kernels line: launches from each one's main-path run
     K, Nf, Ns = FLAGSHIP_K, N_flag, N_slice
     KS = SLICE_K
@@ -747,6 +981,19 @@ def main():
         ("lognum_fused_dd", "pymbar_tpu_torch/csrc/lognum.cu",
          "pymbar_tpu/ops/pallas_kernels.py:331", mesh_launches["LOGNUM_FUSED_LAUNCHES"],
          bound(8 * K * Nf + 12 * K, 8 * K, 10 * K * Nf, F64_OPS_PER_S)),
+        ("fma_chain_f32", "pymbar_tpu_torch/csrc/roofline.cu", "bench.py:253",
+         probe_runs["fma_chain_f32"]["launches"],
+         bound(4 * n_chain, 4 * n_chain, 2 * n_chain * FMA_STEPS, F32_OPS_PER_S)),
+        ("fma_chain_f64", "pymbar_tpu_torch/csrc/roofline.cu", "bench.py:253",
+         probe_runs["fma_chain_f64"]["launches"],
+         bound(8 * n_chain, 8 * n_chain, 2 * n_chain * FMA_STEPS, F64_OPS_PER_S)),
+        ("exp_chain_f64", "pymbar_tpu_torch/csrc/roofline.cu", "bench.py:253",
+         probe_runs["exp_chain_f64"]["launches"],
+         bound(8 * n_chain, 8 * n_chain, 2 * n_chain * EXP_STEPS, F64_OPS_PER_S)),
+    ] + [
+        (name, "pymbar_tpu_torch/csrc/roofline.cu", replaces, probe_runs[name]["launches"],
+         bound(8 * Kp * tile + 8 * Kp, 8 * Kp, 6 * Kp * tile * steps, F64_OPS_PER_S))
+        for (name, (Kp, tile, steps)), replaces in zip(PINNED.items(), ("bench.py:308", "bench.py:373"))
     ]
     print(smi)
     print(json.dumps({"kernels": [dict(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port, on one CUDA card.
 
-    python3 profiling/torch_profile.py [flagship] [slice] [mesh]
+    python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -31,6 +31,13 @@ mesh, mesh, no mesh: init wall, the solve's phases, polish iterations, peak
 memory); times ``sharded_fused_lognum_dd`` on each mesh against one K5 call
 on the whole planes (median of 5 fenced calls); and takes the profiler
 trace of MBAR + free energies on the 4-shard mesh.
+
+``bootstrap`` runs the flagship with B = 64 replicates: ``MBAR`` init with
+and without them in turns, the host draws of the resample indices and the
+counts, ``bootstrap_polish_dd`` at tol 1e-12 and 1e-7 in turns (walls,
+reps/s, phase walls, iterations), the exact phase alone from the base
+point (the same replicates without the float32 fast phase), and one
+profiler trace of ``bootstrap_polish_dd`` at 1e-12.
 """
 
 import json
@@ -128,14 +135,24 @@ def profile_config(torch, name, card):
 def device_trace(torch, u, N_k, walls, mesh=None):
     """Device time per kernel over one MBAR + free energies, and the
     device-busy share of the unprofiled wall of the same work."""
-    from torch.profiler import ProfilerActivity, profile
-
     from pymbar_tpu_torch import MBAR
+
+    return trace_kernels(
+        torch, lambda: MBAR(u, N_k, mesh=mesh).compute_free_energy_differences(),
+        walls["mbar_init_s"] + walls["free_energies_s"],
+    )
+
+
+def trace_kernels(torch, fn, unprofiled):
+    """Device time per kernel over one call of ``fn``, and the device-busy
+    share of ``unprofiled``, the unprofiled wall of the same work (the
+    profiler slows the host side)."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        MBAR(u, N_k, mesh=mesh).compute_free_energy_differences()
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -153,9 +170,6 @@ def device_trace(torch, u, N_k, walls, mesh=None):
     ]
     kernels.sort(key=lambda t: -t[1])
     busy_s = sum(t[1] for t in kernels) / 1e6
-    # the profiler slows the host side, so the idle share is taken against
-    # the unprofiled wall of the same work
-    unprofiled = walls["mbar_init_s"] + walls["free_energies_s"]
     return dict(
         profiled_wall_s=wall, unprofiled_wall_s=unprofiled, device_busy_s=busy_s,
         device_idle_share=1.0 - busy_s / unprofiled,
@@ -223,15 +237,85 @@ def profile_mesh(torch, card):
     torch.cuda.empty_cache()
 
 
+def profile_bootstrap(torch, card):
+    """The flagship with B = 64 bootstrap replicates (see the module doc)."""
+    import numpy as np
+
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch import solvers_large as sl
+    from pymbar_tpu_torch.mbar import bootstrap_counts
+
+    dev = torch.device("cuda", 0)
+    B = 64
+    u, N_k = oscillators(torch, *CONFIGS["flagship"][:2], dev)
+    MBAR(u, N_k, n_bootstraps=B, rseed=1)  # warm-up
+    turns = {"no bootstrap": [], "B = 64": []}
+    for which in ("no bootstrap", "B = 64", "B = 64", "no bootstrap"):
+        kw = dict(n_bootstraps=B, rseed=1) if which == "B = 64" else {}
+        torch.cuda.reset_peak_memory_stats()
+        t, m = timed(torch, lambda: MBAR(u, N_k, **kw))
+        turns[which].append(dict(init_s=t, max_memory_allocated=torch.cuda.max_memory_allocated()))
+    t0 = time.perf_counter()
+    rints = m._draw_bootstrap_rints(B)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = bootstrap_counts(rints, m.N)
+    counts_s = time.perf_counter() - t0
+    print(json.dumps(dict(config="bootstrap", card=card, B=B, mbar_init_by_route=turns,
+                          host_draw_s=draw_s, host_counts_s=counts_s)), flush=True)
+
+    uh, ul = sl.dev_split_planes(u)
+    hinv = m.solver_results[0]["info"]["hinv"]
+
+    def polish(tol):
+        return sl.bootstrap_polish_dd(uh, ul, N_k, m.f_k, hinv, counts, tol=tol)
+
+    runs, f_boots = {}, {}
+    for tol in (1.0e-12, 1.0e-7, 1.0e-7, 1.0e-12):
+        t, (fb, nf, info) = timed(torch, lambda: polish(tol))
+        f_boots[tol] = fb
+        runs.setdefault(f"{tol:g}", []).append(dict(
+            wall_s=t, reps_per_s=B / t, n_fail=nf, n_at_floor=info["n_at_floor"],
+            fast_iters=info["fast_iters"], exact_iters_mean=float(info["exact_iters"].mean()),
+            exact_iters_max=int(info["exact_iters"].max()), phase_walls=info["phase_walls"],
+        ))
+    print(json.dumps(dict(config="bootstrap", card=card, polish_by_tol=runs)), flush=True)
+
+    # the exact phase alone, from the base point
+    N_k64 = torch.as_tensor(np.asarray(N_k, dtype=np.float64), device=dev)
+    f0 = torch.as_tensor(m.f_k, device=dev)
+    C = torch.as_tensor(counts.astype(np.uint8), device=dev)
+    F0 = f0[None, :].expand(B, -1).clone()
+    n_chunk = sl._batch_chunk_width(*uh.shape)
+    exact_only = {}
+    for tol in (1.0e-12, 1.0e-7):
+        t, (F, iters, _d, conv, _floor) = timed(torch, lambda: sl._polish_while_dd_batch_exact(
+            uh, ul, C, N_k64, F0, f0, hinv, tol, 1.0, 16, n_chunk))
+        F = F.cpu().numpy()
+        exact_only[f"{tol:g}"] = dict(
+            wall_s=t, iters_mean=float(iters.float().mean()), iters_max=int(iters.max()),
+            all_converged=bool(conv.all()),
+            max_dev_vs_two_phase=float(np.abs((F - F[:, :1]) - (f_boots[tol] - f_boots[tol][:, :1])).max()),
+        )
+    print(json.dumps(dict(config="bootstrap", card=card, exact_phase_only=exact_only)), flush=True)
+    del C, F0
+    unprofiled = runs["1e-12"][1]["wall_s"]
+    print(json.dumps(dict(config="bootstrap", card=card, tol=1e-12,
+                          **trace_kernels(torch, lambda: polish(1.0e-12), unprofiled))), flush=True)
+    del u, m, uh, ul
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    names = sys.argv[1:] or [*CONFIGS, "mesh"]
-    unknown = [n for n in names if n not in CONFIGS and n != "mesh"]
+    extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap}
+    names = sys.argv[1:] or [*CONFIGS, *extra]
+    unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:
-        raise SystemExit(f"unknown configuration(s) {unknown}; choose from {[*CONFIGS, 'mesh']}")
+        raise SystemExit(f"unknown configuration(s) {unknown}; choose from {[*CONFIGS, *extra]}")
     sys.path.insert(0, REPO)
     from pymbar_tpu_torch.ops import _build
 
@@ -242,8 +326,8 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     for name in names:
-        if name == "mesh":
-            profile_mesh(torch, card)
+        if name in extra:
+            extra[name](torch, card)
         else:
             profile_config(torch, name, card)
 

@@ -152,8 +152,8 @@ int rows_and_finish(const float* uh, const float* ul, const float* m_k, const do
   row_shift<<<k_blocks, kFinishThreads, 0, st>>>(m_k, K, g_hi, g_lo);
   const int64_t cols_per_split = (N + n_split - 1) / n_split;
   const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, n_split);
-  wsum_rows<<<grid, kRowThreads, 0, st>>>(uh, ul, g_hi, g_lo, ld64, r, K, N, cols_per_split,
-                                          partial);
+  wsum_rows<false><<<grid, kRowThreads, 0, st>>>(uh, ul, g_hi, g_lo, ld64, r, K, N,
+                                                 cols_per_split, 0, partial);
   lognum_finish<<<k_blocks, kFinishThreads, 0, st>>>(partial, K, n_split, m_k, take_log,
                                                      out_hi, out_lo);
   return (int)cudaGetLastError();

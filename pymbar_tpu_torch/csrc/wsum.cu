@@ -19,9 +19,10 @@
 // 3.35 TB/s) and evaluates two f64 exps per element (~2e9 x ~20 DFMA, ~2.5 ms
 // at the FP64 pipe's ~16.7 TFMA/s), so it is memory-bound with the FP64 pipe
 // close behind.  Design: three launches, no atomics, deterministic.
-//   1. wsum_columns: one thread per column, threads across n so every row
-//      load is coalesced; an online max with a rescaled sum gives m_n and
-//      s_n with one exp per element; writes m_n and r_n (f64 scratch).
+//   1. wsum_columns (wsum_columns.cuh): one thread per column, threads
+//      across n so every row load is coalesced; an online max with a
+//      rescaled sum gives m_n and s_n with one exp per element; writes m_n
+//      and r_n (f64 scratch).
 //   2. wsum_rows (wsum_rows.cuh, shared with K4): grid (k tiles of 8 rows,
 //      n splits); each thread walks its columns once for all rows of the
 //      tile, accumulates T_kn r_n in f64 registers, and the block reduces
@@ -30,44 +31,11 @@
 //      fixed order and splits S into hi/lo float32.
 // Recomputing T in pass 2 costs one more read of the planes (8 B/element)
 // where storing it would cost a write and a read (16 B/element in f64).
-// One read with T kept on chip (TMA tiles) is later work.
+// One read with T kept on chip (TMA tiles) is later work.  The same two
+// passes over one L2-resident tile are the roofline probes of roofline.cu.
 
+#include "wsum_columns.cuh"
 #include "wsum_rows.cuh"
-
-namespace {
-
-constexpr int kColThreads = 256;
-
-__global__ void __launch_bounds__(kColThreads)
-wsum_columns(const float* __restrict__ uh, const float* __restrict__ ul,
-             const float* __restrict__ gh, const float* __restrict__ gl,
-             const float* __restrict__ c, int K, int64_t N,
-             double* __restrict__ m_out, double* __restrict__ r_out) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  double m = -INFINITY;
-  double s = 0.0;
-  float m_hi = -INFINITY;  // the pad test uses the hi words, as on the TPU
-  for (int k = 0; k < K; ++k) {
-    const size_t idx = (size_t)k * (size_t)N + (size_t)n;
-    const float h = uh[idx];
-    const float gk = __ldg(gh + k);
-    const double a = ((double)gk + (double)__ldg(gl + k)) - ((double)h + (double)ul[idx]);
-    m_hi = fmaxf(m_hi, gk - h);
-    if (a > m) {
-      s = s * exp(m - a) + 1.0;
-      m = a;
-    } else {
-      s += exp(a - m);
-    }
-  }
-  double r = (m_hi < -1.0e8f) ? 0.0 : 1.0 / s;
-  if (c != nullptr) r *= (double)c[n];
-  m_out[n] = m;
-  r_out[n] = r;
-}
-
-}  // namespace
 
 // Launches the three kernels on `stream` and returns cudaGetLastError().
 // The caller allocates m and r ((N,) float64), partial ((n_split, K)
@@ -80,7 +48,8 @@ extern "C" int wsum_dd_launch(const float* uh, const float* ul, const float* gh,
   if (K <= 0 || N <= 0 || n_split <= 0) return (int)cudaErrorInvalidValue;
   const int64_t col_blocks = (N + kColThreads - 1) / kColThreads;
   if (col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  wsum_columns<<<(unsigned)col_blocks, kColThreads, 0, st>>>(uh, ul, gh, gl, c, K, N, m, r);
+  wsum_columns<false><<<(unsigned)col_blocks, kColThreads, 0, st>>>(uh, ul, gh, gl, c, K, N, 0,
+                                                                     m, r);
 
   launch_rows_and_finish(uh, ul, gh, gl, m, r, K, N, n_split, partial, s_hi, s_lo, st);
   return (int)cudaGetLastError();

@@ -9,6 +9,11 @@
 //     (pad columns, zero counts) add exactly 0.
 //   wsum_finish: sums the partials over the splits in a fixed order and
 //     splits S into hi/lo float32.  No atomics: the same bits on every run.
+//
+// kPinned = false is production; kPinned = true is the roofline probe of
+// roofline.cu, where virtual column n reads column n & (tile - 1) of one
+// (K, tile) pair (see wsum_columns.cuh).  The production instantiation
+// compiles the index expression the row pass always had.
 
 #pragma once
 
@@ -28,11 +33,12 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+template <bool kPinned>
 __global__ void __launch_bounds__(kRowThreads)
 wsum_rows(const float* __restrict__ uh, const float* __restrict__ ul,
           const float* __restrict__ gh, const float* __restrict__ gl,
           const double* __restrict__ m, const double* __restrict__ r,
-          int K, int64_t N, int64_t cols_per_split,
+          int K, int64_t N, int64_t cols_per_split, int64_t tile,
           double* __restrict__ partial) {
   const int k0 = blockIdx.x * kRowsPerBlock;
   const int split = blockIdx.y;
@@ -52,11 +58,13 @@ wsum_rows(const float* __restrict__ uh, const float* __restrict__ ul,
     const double rn = r[n];
     if (rn == 0.0) continue;  // pad columns (and zero counts) add exactly 0
     const double mn = m[n];
+    const int64_t col = kPinned ? (n & (tile - 1)) : n;
+    const int64_t ld = kPinned ? tile : N;
 #pragma unroll
     for (int j = 0; j < kRowsPerBlock; ++j) {
       const int k = k0 + j;
       if (k < K) {
-        const size_t idx = (size_t)k * (size_t)N + (size_t)n;
+        const size_t idx = (size_t)k * (size_t)ld + (size_t)col;
         const double a = g[j] - ((double)uh[idx] + (double)ul[idx]);
         acc[j] += exp(a - mn) * rn;
       }
@@ -97,14 +105,17 @@ wsum_finish(const double* __restrict__ partial, int K, int n_split,
 
 // Launches wsum_rows then wsum_finish on `st`: n_split column splits,
 // partial ((n_split, K) float64) and the (K,) float32 outputs allocated by
-// the caller.
+// the caller; `tile` is read only by the pinned probe.
+template <bool kPinned = false>
 inline void launch_rows_and_finish(const float* uh, const float* ul, const float* gh,
                                    const float* gl, const double* m, const double* r,
                                    int K, int64_t N, int n_split, double* partial,
-                                   float* s_hi, float* s_lo, cudaStream_t st) {
+                                   float* s_hi, float* s_lo, cudaStream_t st,
+                                   int64_t tile = 0) {
   const int64_t cols_per_split = (N + n_split - 1) / n_split;
   const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, n_split);
-  wsum_rows<<<grid, kRowThreads, 0, st>>>(uh, ul, gh, gl, m, r, K, N, cols_per_split, partial);
+  wsum_rows<kPinned><<<grid, kRowThreads, 0, st>>>(uh, ul, gh, gl, m, r, K, N, cols_per_split,
+                                                   tile, partial);
   wsum_finish<<<(K + kFinishThreads - 1) / kFinishThreads, kFinishThreads, 0, st>>>(
       partial, K, n_split, s_hi, s_lo);
 }

@@ -3,10 +3,11 @@
 The counterpart of :class:`pymbar_tpu.mbar.MBAR` (reference pymbar 4.x
 mbar.py:64-1988) for the solve and the free-energy differences: the same
 constructor surface, result-dictionary schema and uncertainty methods
-None / 'svd-ew' / 'approximate', and the solve on a 1-D device mesh
-(``mesh=``).  Expectations, entropy, overlap, BAR initialization and
-bootstrap are still to be ported and raise :class:`ParameterError` where the
-constructor would need them.
+None / 'svd-ew' / 'approximate' / 'bootstrap', the solve on a 1-D device
+mesh (``mesh=``) and bootstrap replicates on one device
+(``n_bootstraps=``).  Expectations, entropy, overlap, BAR initialization
+and the mesh bootstrap are still to be ported and raise
+:class:`ParameterError` where the constructor would need them.
 
 ``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
 is, a numpy array goes to ``device`` (default: the CUDA card; without one,
@@ -30,6 +31,7 @@ from pymbar_tpu_torch.solvers import (
     ROBUST_SOLVER_PROTOCOL,
     target_device,
 )
+from pymbar_tpu_torch.solvers_large import solve_mbar_dd_bootstrap
 from pymbar_tpu_torch.utils import ParameterError, kln_to_kn
 
 logger = logging.getLogger(__name__)
@@ -43,6 +45,20 @@ __all__ = ["MBAR"]
 # routes are launch-bound and tie, so smaller problems keep the default
 # protocol and its hybr fallback.  Module constant so tests can move it.
 _DD_ROUTE_BYTES = 8 * 2**20
+
+
+def bootstrap_counts(bootstrap_rints, n_total):
+    """(B, N) per-sample multiplicities of every replicate's resample
+    indices (the definition of a counts-weighted replicate), as the dd
+    counts route builds them: uint16, widened to float32 if a multiplicity
+    above 65535 appears."""
+    counts = np.zeros((len(bootstrap_rints), n_total), np.uint16)
+    for b, rints in enumerate(bootstrap_rints):
+        row = np.bincount(rints, minlength=n_total)
+        if row.max() > 65535 and counts.dtype == np.uint16:
+            counts = counts.astype(np.float32)
+        counts[b] = row
+    return counts
 
 
 def _same_device(a, b):
@@ -85,8 +101,19 @@ class MBAR:
     a numpy ``u_kn`` is placed (default "cuda", and without a card a
     :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
     device is used as it is).  ``initialize="BAR"`` and ``n_bootstraps > 0``
-    (with or without a mesh) are not yet ported and raise
-    :class:`ParameterError`.
+    with a mesh are not yet ported and raise :class:`ParameterError`.
+
+    ``n_bootstraps``: replicates drawn with the object's numpy
+    ``default_rng(rseed)`` in the JAX package's order (replicate, then
+    state), so a seed gives ``pymbar_tpu.MBAR``'s ``bootstrap_rints``.  On
+    a dd solve with every state sampled and the default bootstrap protocol
+    they ride the base solve's planes as counts-weighted polishes
+    (:func:`pymbar_tpu_torch.solvers_large.solve_mbar_dd_bootstrap`, which
+    sets ``bootstrap_at_floor``); otherwise each replicate is solved in
+    turn on ``u_kn[:, rints]`` under ``bootstrap_solver_protocol``.  Where
+    the automatic choice would take the mesh of several cards, a bootstrap
+    takes the single-card dd route instead (the mesh bootstrap is not yet
+    ported).
 
     ``mesh``: a :class:`pymbar_tpu_torch.parallel.Mesh` solves the sampled
     states by the sample-sharded double-word solver
@@ -122,13 +149,10 @@ class MBAR:
         mesh=None,
         device=None,
     ):
-        if n_bootstraps > 0:
-            raise ParameterError("n_bootstraps > 0 is not yet ported to pymbar_tpu_torch")
         if n_bootstraps < 0:
             logger.warning("n_bootstraps must be an integer >= 0")
         if initialize == "BAR":
             raise ParameterError("initialize='BAR' is not yet ported to pymbar_tpu_torch")
-        del bootstrap_solver_protocol  # only used with bootstraps
 
         self.N_k = np.array(N_k, dtype=np.int64)
         self.u_kn = _u_tensor(u_kn, self.N_k, device)
@@ -176,9 +200,20 @@ class MBAR:
 
         # The mesh front door: mesh="auto" takes every visible card when
         # there are several; a Mesh is honored as it is.  An explicit
-        # solver_protocol wins over the mesh, with a warning.
-        if mesh == "auto":
-            mesh = default_mesh() if torch.cuda.device_count() > 1 else None
+        # solver_protocol wins over the mesh, with a warning.  A bootstrap
+        # keeps to one card: the mesh bootstrap is not yet ported.
+        several = torch.cuda.device_count() > 1
+        if several and n_bootstraps > 0 and (
+            mesh == "auto"
+            or (solver_protocol is None and mesh is None and self._dd_sized())
+        ):
+            logger.info(
+                "n_bootstraps > 0: the mesh bootstrap is not yet ported, so "
+                "the solve and its replicates run on one card"
+            )
+            mesh = None
+        elif mesh == "auto":
+            mesh = default_mesh() if several else None
         self.mesh = mesh
         if mesh is not None and solver_protocol is not None:
             logger.warning(
@@ -187,16 +222,16 @@ class MBAR:
                 "is ignored for the solve."
             )
             self.mesh = mesh = None
+        if mesh is not None and n_bootstraps > 0:
+            raise ParameterError(
+                "n_bootstraps > 0 with a mesh (the mesh bootstrap) is not yet "
+                "ported to pymbar_tpu_torch"
+            )
 
         # The route gate: large CUDA problems with no protocol take the
         # double-word solver, sharded over every card when there are several.
-        if (
-            solver_protocol is None
-            and mesh is None
-            and self.u_kn.is_cuda
-            and self.u_kn.nbytes >= _DD_ROUTE_BYTES
-        ):
-            if torch.cuda.device_count() > 1:
+        if solver_protocol is None and mesh is None and self._dd_sized():
+            if several and n_bootstraps <= 0:
                 self.mesh = mesh = default_mesh()
             else:
                 solver_protocol = (dict(method="dd", options=dict()),)
@@ -204,8 +239,47 @@ class MBAR:
         self.solver_protocol = self._resolve_protocol(
             solver_protocol, DEFAULT_SOLVER_PROTOCOL, maximum_iterations
         )
-        self.n_bootstraps = 0
-        if mesh is not None:
+        bootstrap_solver_protocol = self._resolve_protocol(
+            bootstrap_solver_protocol, BOOTSTRAP_SOLVER_PROTOCOL, maximum_iterations
+        )
+
+        # Every replicate's resample indices, drawn before the solve (the
+        # stream is the JAX package's: nothing else consumes it in between).
+        self.n_bootstraps = max(int(n_bootstraps), 0)
+        self.bootstrap_at_floor = None
+        counts = None
+        if self.n_bootstraps > 0:
+            self.bootstrap_rints = self._draw_bootstrap_rints(self.n_bootstraps)
+            counts_route = (
+                len(bootstrap_solver_protocol) == 1
+                and bootstrap_solver_protocol[0]["method"] == "adaptive"
+                and len(self.solver_protocol) == 1
+                and self.solver_protocol[0]["method"] == "dd"
+                and self.K_nonzero == self.K
+            )
+            if counts_route:
+                counts = bootstrap_counts(self.bootstrap_rints, self.N)
+
+        f_boots = None
+        if counts is not None:
+            stage = self.solver_protocol[0]
+            self.f_k, f_boots, n_fail, info = solve_mbar_dd_bootstrap(
+                self.u_kn, self.N_k, self.f_k, counts,
+                tol=stage.get("tol", 1.0e-12), options=stage.get("options"), verbose=verbose,
+            )
+            self.solver_results = [dict(x=self.f_k, success=bool(info["converged"]), info=info)]
+            self.bootstrap_at_floor = info["bootstrap_at_floor"]
+            if not info["converged"]:
+                logger.warning(
+                    "dd MBAR solve did not converge to within tolerance "
+                    f"(gnorm={info['gnorm']:.3e})"
+                )
+            if n_fail:
+                logger.warning(
+                    f"{n_fail:d}/{self.n_bootstraps:d} bootstrap replicates did not "
+                    "converge to within tolerance."
+                )
+        elif mesh is not None:
             self.f_k, self.solver_results = sharded_solve_mbar_for_all_states(
                 self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh
             )
@@ -214,8 +288,52 @@ class MBAR:
                 self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol
             )
 
+        if self.n_bootstraps > 0:
+            self.f_k_boots = (
+                f_boots if f_boots is not None
+                else self._bootstrap_sequential(bootstrap_solver_protocol, verbose)
+            )
+
         if self.verbose:
             logger.info(f"Final dimensionless free energies f_k = {self.f_k}")
+
+    def _dd_sized(self):
+        """The route gate's size test: a CUDA u_kn of at least _DD_ROUTE_BYTES."""
+        return self.u_kn.is_cuda and self.u_kn.nbytes >= _DD_ROUTE_BYTES
+
+    def _draw_bootstrap_rints(self, n_bootstraps):
+        """(B, N) resample indices from ``self.rng``, drawn replicate by
+        replicate and state by state as the JAX package does (mbar.py:
+        871-895).  The per-state index lists (``np.where(x_kindices == k)``
+        there, one scan of N per state and replicate) draw nothing, so they
+        come once from one stable sort, which keeps each list ascending."""
+        order = np.argsort(self.x_kindices, kind="stable")
+        starts = np.searchsorted(self.x_kindices[order], np.arange(self.K + 1))
+        k_indices = [order[starts[k]:starts[k + 1]] for k in range(self.K)]
+        rints = np.zeros((n_bootstraps, self.N), int)
+        for b in range(n_bootstraps):
+            for k, idx in enumerate(k_indices):
+                if len(idx) == 0:
+                    continue
+                n_k = int(self.N_k[k])
+                rints[b, idx] = idx[self.rng.integers(n_k, size=n_k)]
+        return rints
+
+    def _bootstrap_sequential(self, bootstrap_solver_protocol, verbose):
+        """Each replicate solved in turn on its resampled columns
+        ``u_kn[:, rints]`` from the base f_k (the JAX package's sequential
+        route, mbar.py:1013-1031).  Returns f_k_boots (B, K)."""
+        f_k_boots = np.zeros((self.n_bootstraps, self.K))
+        maxfrac = int(max(1, 0.1 * self.n_bootstraps))
+        for b in range(self.n_bootstraps):
+            rints = torch.as_tensor(self.bootstrap_rints[b], device=self.u_kn.device)
+            f_k_boots[b], _ = mbar_solvers.solve_mbar_for_all_states(
+                self.u_kn.index_select(1, rints), self.N_k, self.f_k.copy(),
+                self.states_with_samples, bootstrap_solver_protocol,
+            )
+            if verbose and b % maxfrac == 0:
+                logger.info(f"Calculated {b + 1:d}/{self.n_bootstraps:d} bootstrap samples")
+        return f_k_boots
 
     @classmethod
     def from_solution(
@@ -339,10 +457,11 @@ class MBAR:
         Parameters
         ----------
         compute_uncertainty : bool, optional, default True
-        uncertainty_method : {None, 'approximate', 'svd-ew'}, optional
+        uncertainty_method : {None, 'approximate', 'svd-ew', 'bootstrap'}, optional
             ``None``/'svd-ew' uses the eigendecomposition form of Eq. D4;
-            'approximate' uses Theta = W^T W (Kong 2003).  'svd' and
-            'bootstrap' are not yet ported.
+            'approximate' uses Theta = W^T W (Kong 2003); 'bootstrap' the
+            standard deviation over the replicates of ``n_bootstraps``.
+            'svd' is not yet ported.
         warning_cutoff : float, optional, default 1.0e-10
             Warn when a squared uncertainty is more negative than this.
         return_theta : bool, optional, default False
@@ -361,17 +480,20 @@ class MBAR:
         self._zerosamestates(Deltaf_ij)
         result_vals = dict(Delta_f=Deltaf_ij)
 
-        if uncertainty_method == "bootstrap":
+        if uncertainty_method == "bootstrap" and not self.n_bootstraps:
             raise ParameterError(
                 "Cannot request bootstrap sampling of free energy differences "
                 "without any bootstraps."
             )
 
         Theta_ij = None
-        if compute_uncertainty or return_theta:
+        if (compute_uncertainty and uncertainty_method != "bootstrap") or return_theta:
             Theta_ij = self._compute_theta_streamed(method=uncertainty_method)
 
-        if compute_uncertainty:
+        if compute_uncertainty and uncertainty_method == "bootstrap":
+            diffm = self.f_k_boots[:, None, :] - self.f_k_boots[:, :, None]
+            result_vals["dDelta_f"] = np.std(diffm, axis=0)
+        elif compute_uncertainty:
             dDeltaf_ij = np.array(
                 self._ErrorOfDifferences(Theta_ij, warning_cutoff=warning_cutoff)
             )
@@ -390,7 +512,7 @@ class MBAR:
         (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
         accelerator; a CPU Gram takes the dense numpy path.  Theta is
         returned as a numpy array."""
-        if method is None:
+        if method is None or method == "bootstrap":
             method = "svd-ew"
         if method == "svd":
             raise ParameterError(

@@ -18,7 +18,14 @@ same 8 bytes per element as f64, and the solve runs in two phases:
 
 The JAX package runs the polish as one device ``while_loop``; here it is a
 Python loop that syncs once per iteration to evaluate its stop rules.
-Bootstrap replicates are not ported yet.
+
+Bootstrap replicates (:func:`bootstrap_polish_dd`,
+:func:`solve_mbar_dd_bootstrap`) ride the same planes: a resample is the
+data reweighted by integer per-sample counts, so a replicate is a
+counts-weighted polish from the base solution with the base chord factor.
+The default batched engine advances every replicate per iteration from one
+shared exp stream of the planes and two matmuls per chunk; the serial mode
+runs one counts-weighted ``wsum_dd`` polish per replicate.
 """
 
 import logging
@@ -28,13 +35,20 @@ import numpy as np
 import torch
 
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
-from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES, gram_f32_acc64
+from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES, _matmul, gram_f32_acc64
 from pymbar_tpu_torch.ops.wsum import wsum_dd
 from pymbar_tpu_torch.solvers import _adaptive_while, target_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["solve_mbar_dd", "host_split_planes", "dev_split_planes", "polish_to_host"]
+__all__ = [
+    "solve_mbar_dd",
+    "host_split_planes",
+    "dev_split_planes",
+    "polish_to_host",
+    "bootstrap_polish_dd",
+    "solve_mbar_dd_bootstrap",
+]
 
 # Below this many K x N plane elements the coarse strided-subsample warm
 # start is skipped and the float32 phase runs on the full plane.  The value
@@ -335,3 +349,486 @@ def solve_mbar_dd(
         phase2_s=time.time() - t_phase2,
         hinv=hinv,
     )
+
+
+# -----------------------------------------------------------------------------
+# Bootstrap replicates
+# -----------------------------------------------------------------------------
+
+
+def _polish_while_dd_w(u_hi, u_lo, c, N_k64, f0, hinv, logN, tol, gamma, maxiter):
+    """Counts-weighted dd polish of one bootstrap replicate:
+    :func:`_polish_loop` over ``wsum_dd(..., c=c)`` (K1 with counts on a
+    CUDA tensor), so the replicate's gradient is sum_n c_n N_k W_nk - N_k
+    on the SAME planes.  ``c``: (N,) float32 counts on the planes' device."""
+
+    def wsum(uh, ul, gh, gl):
+        return wsum_dd(uh, ul, gh, gl, c)
+
+    return _polish_loop(wsum, u_hi, u_lo, N_k64, f0, hinv, logN, tol, gamma, maxiter)
+
+
+# Ceiling on (planes + resident th) bytes for the batched bootstrap's
+# materialized fast-phase plane: 12 B/element (8 B dd planes + 4 B f32 th).
+# The value is the JAX package's, set beside a 16 GB TPU HBM; the H100's own
+# is still to be measured.  The flagship (K = 1024 x N = 999,424, 12.3 GB)
+# fits; above it the fast phase recomputes the exp every iteration.
+_TH_RESIDENT_BUDGET_BYTES = 12.4e9
+
+
+def _use_resident_th(K, N):
+    return 12.0 * K * N <= _TH_RESIDENT_BUDGET_BYTES
+
+
+def _exp_chunk(uh_c, ul_c, g0h, g0l):
+    """T1_kn = exp((g0_k - u_kn) - m_n) in f64 for one column chunk, with
+    the JAX package's stabilizer m_n = max_k (g0h_k - uh_kn) in float32
+    (it cancels in every weight).  The JAX package evaluates this dd exp
+    outside Pallas (``_exp_terms``); here it is plain f64."""
+    m = (g0h[:, None] - uh_c).amax(dim=0)
+    a = dd_to_f64(g0h, g0l)[:, None] - dd_to_f64(uh_c, ul_c)
+    return a.sub_(m.to(torch.float64)[None, :]).exp_()
+
+
+def _materialize_th(u_hi, u_lo, g0h, g0l, n_chunk):
+    """The base-point fast plane th_kn = float32(T1_kn), written chunk by
+    chunk.  T1 depends only on the base point g0, not on the replicate
+    iterates, so every fast-phase iteration of every group reuses it and
+    skips the exp."""
+    K, N = u_hi.shape
+    th = torch.empty((K, N), dtype=torch.float32, device=u_hi.device)
+    for s in range(0, N, n_chunk):
+        e = min(N, s + n_chunk)
+        th[:, s:e] = _exp_chunk(u_hi[:, s:e], u_lo[:, s:e], g0h, g0l)
+    return th
+
+
+# Sample-segment width of the fast phase's weight-sum contraction: float32
+# products summed over 512-wide segments, float64 adds between segments,
+# which bounds each float32 accumulation chain at 512 terms (S error
+# ~2.5e-8 relative where one flat chain gives ~1.7e-6, JAX package).
+_FAST_SEG = 512
+
+
+def _seg_wsum(W, th_c, seg=_FAST_SEG):
+    """(B, nc) x (K, nc) -> (B, K) float64 weight sum: float32 products over
+    ``seg``-wide sample segments (one batched matmul, TF32 refused), f64
+    adds between segments; a ragged tail contracts flat."""
+    B, nc = W.shape
+    K = th_c.shape[0]
+    nseg = nc // seg
+    main = nseg * seg
+    S = torch.zeros((B, K), dtype=torch.float64, device=W.device)
+    if nseg:
+        Wr = W[:, :main].reshape(B, nseg, seg).transpose(0, 1)  # (nseg, B, seg)
+        Tr = th_c[:, :main].reshape(K, nseg, seg).permute(1, 2, 0)  # (nseg, seg, K)
+        S = _matmul(Wr, Tr).to(torch.float64).sum(dim=0)
+    if main < nc:
+        S += _matmul(W[:, main:], th_c[:, main:].T).to(torch.float64)
+    return S
+
+
+def _batched_boot_chunk_th(th_c, R32, C_c):
+    """Fast-phase chunk contribution from the resident th plane: the
+    denominator matmul and :func:`_seg_wsum`, no exp."""
+    den = _matmul(R32, th_c)
+    return _seg_wsum(C_c / den, th_c)
+
+
+def _batched_boot_chunk(uh_c, ul_c, g0h, g0l, R, C_c, exact):
+    """One sample chunk's contribution to every replicate's weight sum.
+
+    With T1_kn = exp((g0_k - u_kn) - m_n) at the base point g0 and
+    r_bk = exp(f_bk - f_base,k), replicate b's weights are
+    W_bnk = r_bk T1_kn / sum_j r_bj T1_jn (m_n cancels), so the exp is
+    computed once for all replicates and the per-replicate work is two
+    (B, K) x (K, nc) matmuls.  ``exact``: float64 matmuls (DGEMM); else
+    float32 on the rounded T1 with the segmented weight sum.  Returns the
+    (B, K) partial sum_n C_bn T1_kn / den_bn (the caller scales by r_bk).
+    """
+    T = _exp_chunk(uh_c, ul_c, g0h, g0l)
+    if exact:
+        W = C_c.to(torch.float64) / (R @ T)
+        return W @ T.T
+    th = T.to(torch.float32)
+    del T
+    return _batched_boot_chunk_th(th, R.to(torch.float32), C_c)
+
+
+def _batched_wsum_S(u_hi, u_lo, g0h, g0l, R, C, n_chunk, exact, th=None):
+    """S_bk = r_bk sum_n c_bn T1_kn / den_bn for all B replicates: one
+    streamed exp pass over the planes and two matmuls per chunk, or, for
+    the fast phase with the resident plane ``th``, the matmuls alone.
+    ``C``: (B, N) counts on the device, uint8 or float32; each chunk is
+    cast to float32 as it is used."""
+    K, N = u_hi.shape
+    use_th = th is not None and not exact
+    R32 = R.to(torch.float32) if use_th else None
+    S = torch.zeros((C.shape[0], K), dtype=torch.float64, device=u_hi.device)
+    for s in range(0, N, n_chunk):
+        e = min(N, s + n_chunk)
+        C_c = C[:, s:e].to(torch.float32)
+        if use_th:
+            S += _batched_boot_chunk_th(th[:, s:e], R32, C_c)
+        else:
+            S += _batched_boot_chunk(u_hi[:, s:e], u_lo[:, s:e], g0h, g0l, R, C_c, exact)
+    return R * S
+
+
+# Fast-phase stop: the segmented pass's step-delta plateau sits at ~2e-7,
+# so 1e-6 is reached in a few iterations; the fast fixed point itself lies
+# ~2e-5 from the truth, which is the exact phase's start error.
+_BATCH_FAST_TOL = 1.0e-6
+_BATCH_FAST_MAXITER = 10
+
+
+def _batch_step(S_fn, g0h, g0l, f0, N_k64, hinv, gamma, F, exact):
+    """One batched frozen-factor chord-Newton step of all replicates:
+    returns (F_new, per-replicate delta)."""
+    R = torch.exp(F - f0[None, :])
+    g = S_fn(g0h, g0l, R, exact) - N_k64[None, :]
+    dx1 = g[:, 1:] @ hinv.T
+    F_new = F - gamma * torch.nn.functional.pad(dx1, (1, 0))
+    F_new = F_new - F_new[:, :1]
+    div = torch.clamp(torch.abs(F_new[:, 1:]), min=1.0)
+    d = (torch.abs(F_new[:, 1:] - F[:, 1:]) / div).amax(dim=1)
+    return F_new, d
+
+
+def _batch_fast_from_S_fn(S_fn, B, N_k64, f0, hinv, gamma):
+    """FAST phase of the batched bootstrap: float32 matmul iterations take
+    every replicate from its ~1/sqrt(N_k) start displacement to the
+    segmented pass's delta plateau (stop at ``_BATCH_FAST_TOL``).  A
+    replicate below the tol, or with a non-finite step, keeps its iterate;
+    a non-finite iterate restarts from the base point.  One host sync per
+    iteration.  Returns (F, iterations)."""
+    g0h, g0l = dd_from_f64(f0 + torch.log(N_k64))
+    F0 = f0[None, :].expand(B, f0.shape[0]).to(torch.float64).clone()
+    F = F0
+    prev_d = torch.full((B,), torch.inf, dtype=torch.float64, device=f0.device)
+    it = 0
+    while it < _BATCH_FAST_MAXITER and not bool((prev_d < _BATCH_FAST_TOL).all()):
+        F_new, d = _batch_step(S_fn, g0h, g0l, f0, N_k64, hinv, gamma, F, exact=False)
+        keep = torch.isfinite(d) & (prev_d >= _BATCH_FAST_TOL)
+        F = torch.where(keep[:, None], F_new, F)
+        prev_d = torch.where(torch.isfinite(d), d, prev_d)
+        it += 1
+    F = torch.where(torch.isfinite(F).all(dim=1)[:, None], F, F0)
+    return F, it
+
+
+def _batch_exact_from_S_fn(S_fn, F, N_k64, f0, hinv, tol, gamma, maxiter):
+    """EXACT phase of the batched bootstrap: float64 matmuls with
+    per-replicate certification, from the fast phase's iterates ``F``.
+
+    Per-replicate stops: converged (d < tol), stalled, tiny, non-finite,
+    and the predictive stop d^2/prev_d < 0.1 tol (under the measured linear
+    contraction the next delta would sit 10x below tol, so the pass that
+    would certify it is skipped).  The single-replicate polish keeps its
+    own 1e-14 predictive rule.  A stopped replicate keeps its iterate.
+    One host sync per iteration.  Returns (F, iters (B,), deltas
+    (maxiter, B) nan-padded, converged (B,), at_floor (B,))."""
+    g0h, g0l = dd_from_f64(f0 + torch.log(N_k64))
+    B = F.shape[0]
+    dev = F.device
+    prev_d = torch.full((B,), torch.inf, dtype=torch.float64, device=dev)
+    deltas = torch.full((maxiter, B), torch.nan, dtype=torch.float64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    floor = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    it = 0
+    while it < maxiter and not bool(done.all()):
+        F_new, d = _batch_step(S_fn, g0h, g0l, f0, N_k64, hinv, gamma, F, exact=True)
+        bad = ~torch.isfinite(d)
+        conv = d < tol
+        stalled = (iters >= 1) & (d < 1.0e-9) & (d > 0.3 * prev_d)
+        tiny = d < 3.0e-13
+        pred = torch.where(torch.isfinite(prev_d), d * d / prev_d, torch.inf)
+        at_floor = ~conv & (stalled | tiny | (pred < 0.1 * tol))
+        live = ~done
+        deltas[it] = torch.where(live, d, torch.nan)
+        F = torch.where((live & ~bad)[:, None], F_new, F)
+        prev_d = torch.where(live, d, prev_d)
+        iters += live.to(torch.int32)
+        done = done | conv | at_floor | bad
+        floor = floor | (live & at_floor)
+        it += 1
+    # converged unless it exhausted maxiter or its last delta was non-finite
+    return F, iters, deltas, done & torch.isfinite(prev_d), floor
+
+
+def _batch_loop_from_S_fn(S_fn, B, N_k64, f0, hinv, tol, gamma, maxiter):
+    """The two-phase batched chord-Newton loop over an abstract weight-sum
+    pass ``S_fn(g0h, g0l, R, exact) -> (B, K) f64``: the fast phase, then
+    the exact phase.  The single-card engine runs the phases separately (to
+    time each); this composition is the form a sharded engine reuses.
+    Returns the exact phase's (F, iters, deltas, converged, at_floor)."""
+    F, _it_f = _batch_fast_from_S_fn(S_fn, B, N_k64, f0, hinv, gamma)
+    return _batch_exact_from_S_fn(S_fn, F, N_k64, f0, hinv, tol, gamma, maxiter)
+
+
+def _polish_while_dd_batch_fast(u_hi, u_lo, C, N_k64, f0, hinv, gamma, n_chunk, th=None):
+    """FAST phase of the single-card batched bootstrap over
+    :func:`_batched_wsum_S`; with ``th`` it never evaluates the exp."""
+
+    def S_fn(g0h, g0l, R, exact):
+        return _batched_wsum_S(u_hi, u_lo, g0h, g0l, R, C, n_chunk, exact, th=th)
+
+    return _batch_fast_from_S_fn(S_fn, C.shape[0], N_k64, f0, hinv, gamma)
+
+
+def _polish_while_dd_batch_exact(u_hi, u_lo, C, N_k64, F, f0, hinv, tol, gamma, maxiter, n_chunk):
+    """EXACT phase of the single-card batched bootstrap (float64 matmuls,
+    per-replicate certification)."""
+
+    def S_fn(g0h, g0l, R, exact):
+        return _batched_wsum_S(u_hi, u_lo, g0h, g0l, R, C, n_chunk, exact)
+
+    return _batch_exact_from_S_fn(S_fn, F, N_k64, f0, hinv, tol, gamma, maxiter)
+
+
+def _polish_while_dd_batch(u_hi, u_lo, C, N_k64, f0, hinv, tol, gamma, maxiter, n_chunk, th=None):
+    """All replicates of ``C`` polished together on one card: the fast and
+    exact phases back to back.  Each iteration advances every live
+    replicate from one shared exp stream of the planes, where the serial
+    mode pays that stream once per replicate."""
+    F, _it_f = _polish_while_dd_batch_fast(u_hi, u_lo, C, N_k64, f0, hinv, gamma, n_chunk, th=th)
+    return _polish_while_dd_batch_exact(u_hi, u_lo, C, N_k64, F, f0, hinv, tol, gamma, maxiter,
+                                        n_chunk)
+
+
+def _batch_chunk_width(K, N):
+    """Sample-chunk width of the batched pass: ~2^24 chunk elements (a
+    128 MB f64 T1 chunk at K = 1024).  The JAX package's value, sized for a
+    TPU; the H100's own is still to be measured."""
+    return int(max(1024, min(N, (1 << 24) // max(K, 1))))
+
+
+def _batch_group_size(B, N):
+    """Replicates per batched group: the device counts matrix is at most
+    ~2^28 elements (the JAX package's budget; to be measured here)."""
+    return int(max(1, min(B, max(8, (1 << 28) // max(N, 1)))))
+
+
+def _boot_info(at_floor, B, n_fail):
+    """Bootstrap convergence accounting: 'certified d < tol' apart from
+    'stopped at the dd noise floor' (stalled / tiny / predictive stop,
+    worst-case residual ~tol/5), so callers see the relaxed stop."""
+    n_at_floor = int(np.count_nonzero(at_floor))
+    if n_at_floor:
+        logger.info(
+            f"{n_at_floor:d}/{B:d} bootstrap replicates stopped at the dd "
+            "noise floor (stalled/tiny/predictive stop) rather than "
+            "certifying d < tol; worst-case residual ~tol/5."
+        )
+    return dict(at_floor=at_floor, n_at_floor=n_at_floor, n_tol_converged=B - n_fail - n_at_floor)
+
+
+def _counts_upload_dtype(counts):
+    """uint8 when every count fits (resample multiplicities are small
+    integers), else float32."""
+    if counts.dtype == np.uint8:
+        return np.uint8
+    top = counts.max()
+    if np.issubdtype(counts.dtype, np.integer):
+        return np.uint8 if top <= 255 else np.float32
+    integral = top <= 255 and counts.min() >= 0 and np.all(counts == np.round(counts))
+    return np.uint8 if integral else np.float32
+
+
+def _retry_polish(u_hi, u_lo, c, N_k64, f_b, logN, tol, gamma, maxiter):
+    """A replicate the base factor failed to contract: a fresh
+    counts-weighted float32-Gram factor at its current iterate and one
+    more counts-weighted polish."""
+    gram_b, colsum_b = gram_f32_acc64(u_hi, N_k64.to(torch.float32), f_b.to(torch.float32), c)
+    hinv_b = _newton_factor(gram_b, colsum_b, N_k64)
+    return polish_to_host(_polish_while_dd_w(u_hi, u_lo, c, N_k64, f_b, hinv_b, logN, tol, gamma,
+                                             maxiter))
+
+
+def bootstrap_polish_dd(
+    u_hi,
+    u_lo,
+    N_k,
+    f_k,
+    hinv,
+    counts,
+    tol=1.0e-12,
+    maxiter=16,
+    gamma=1.0,
+    verbose=False,
+    mode="batched",
+    device=None,
+):
+    """Solve B bootstrap replicates as counts-weighted dd chord-Newton polishes.
+
+    The counterpart of :func:`pymbar_tpu.solvers_large.bootstrap_polish_dd`
+    (minus its TPU knob ``fast_exp``).  A resample is the original data
+    reweighted by integer per-sample multiplicities, so every replicate
+    streams the SAME (hi, lo) planes and no K x N resampled copy exists.
+    Each replicate starts from the base solution ``f_k`` with the base
+    chord factor ``hinv``; one that fails to contract retries once with a
+    fresh counts-weighted float32-Gram factor.
+
+    ``counts``: (B, N) numpy resample multiplicities (rows sum to N, state
+    blocks to N_k).  ``mode``: ``"batched"`` (default; every iteration
+    advances all replicates of a group from one shared exp stream of the
+    planes, a float32 fast phase then a float64 exact phase) or
+    ``"serial"`` (one counts-weighted ``wsum_dd`` polish per replicate).
+    Planes given as numpy go to ``device`` (default: the CUDA card).
+
+    Returns (f_boots (B, K) float64 ndarray, n_fail, info): ``n_fail``
+    counts replicates that neither met ``tol`` nor reached the dd noise
+    floor; ``info["at_floor"]`` (B,) marks noise-floor stops,
+    ``info["n_at_floor"]`` their count and ``info["n_tol_converged"]`` the
+    replicates that certified d < tol (n_fail + n_at_floor +
+    n_tol_converged == B).  The serial mode adds ``polish_iterations``
+    (B,), one ``wsum_dd`` pass each.  The batched mode adds ``phase_walls`` (host
+    seconds, synchronize-fenced: prep, upload, materialize, fast, exact,
+    total), ``fast_iters``, ``exact_iters`` (B,) and ``exact_deltas``
+    (maxiter, last group's width).
+    """
+    if not torch.is_tensor(u_hi):
+        u_hi = torch.as_tensor(np.asarray(u_hi), device=target_device(device))
+    if not torch.is_tensor(u_lo):
+        u_lo = torch.as_tensor(np.asarray(u_lo), device=u_hi.device)
+    dev = u_hi.device
+    counts = np.asarray(counts)
+    B = counts.shape[0]
+    K, N = u_hi.shape
+    N_k64 = torch.as_tensor(np.asarray(N_k, dtype=np.float64), device=dev)
+    logN = torch.log(N_k64)
+    f0 = torch.as_tensor(np.array(f_k, dtype=np.float64), device=dev)
+    f0 = f0 - f0[0]
+    hinv = torch.as_tensor(hinv if torch.is_tensor(hinv) else np.array(hinv),
+                           dtype=torch.float64, device=dev)
+
+    if mode == "serial":
+        f_boots = np.zeros((B, K))
+        at_floor = np.zeros(B, bool)
+        iterations = np.zeros(B, np.int64)
+        n_fail = 0
+        for b in range(B):
+            c = torch.as_tensor(np.asarray(counts[b], dtype=np.float32), device=dev)
+            f_b, iterations[b], _g, _d, converged, floor_b = polish_to_host(
+                _polish_while_dd_w(u_hi, u_lo, c, N_k64, f0, hinv, logN, tol, gamma, maxiter)
+            )
+            if not converged:
+                f_b, it2, _g, _d, converged, floor_b = _retry_polish(
+                    u_hi, u_lo, c, N_k64, f_b, logN, tol, gamma, maxiter
+                )
+                iterations[b] += it2
+            at_floor[b] = converged and floor_b
+            n_fail += not converged
+            f_boots[b] = f_b.cpu().numpy()
+            if verbose and (b + 1) % max(1, B // 10) == 0:
+                logger.info(f"Calculated {b + 1:d}/{B:d} bootstrap samples")
+        info = _boot_info(at_floor, B, n_fail)
+        info["polish_iterations"] = iterations
+        return f_boots, n_fail, info
+    if mode != "batched":
+        raise ValueError(f"bootstrap_polish_dd: unknown mode {mode!r}")
+
+    t_all = time.time()
+    n_chunk = _batch_chunk_width(K, N)
+    group = _batch_group_size(B, N)
+    walls = dict(prep_s=0.0, upload_s=0.0, materialize_s=0.0, fast_s=0.0, exact_s=0.0)
+    th = None
+    t0 = time.time()
+    if _use_resident_th(K, N):
+        # one extra exp pass buys every fast iteration of every group
+        g0h, g0l = dd_from_f64(f0 + logN)
+        th = _materialize_th(u_hi, u_lo, g0h, g0l, n_chunk)
+        _sync(dev)
+    walls["materialize_s"] = time.time() - t0
+    f_boots = np.zeros((B, K))
+    at_floor = np.zeros(B, bool)
+    fast_iters = 0
+    exact_iters = np.zeros(B, np.int32)
+    retry = []
+    t0 = time.time()
+    up_dtype = _counts_upload_dtype(counts)
+    walls["prep_s"] += time.time() - t0
+    for s in range(0, B, group):
+        # a short last group runs as it is: replicate rows are independent
+        e = min(B, s + group)
+        t0 = time.time()
+        C = np.ascontiguousarray(counts[s:e], dtype=up_dtype)
+        walls["prep_s"] += time.time() - t0
+        t0 = time.time()
+        C_dev = torch.as_tensor(C, device=dev)
+        _sync(dev)
+        walls["upload_s"] += time.time() - t0
+        t0 = time.time()
+        F, it_f = _polish_while_dd_batch_fast(u_hi, u_lo, C_dev, N_k64, f0, hinv, gamma, n_chunk,
+                                              th=th)
+        _sync(dev)
+        walls["fast_s"] += time.time() - t0
+        fast_iters = max(fast_iters, it_f)
+        t0 = time.time()
+        F, iters, deltas_g, conv, floor = _polish_while_dd_batch_exact(
+            u_hi, u_lo, C_dev, N_k64, F, f0, hinv, tol, gamma, maxiter, n_chunk
+        )
+        f_boots[s:e] = F.cpu().numpy()
+        walls["exact_s"] += time.time() - t0
+        conv = conv.cpu().numpy()
+        at_floor[s:e] = floor.cpu().numpy()
+        exact_iters[s:e] = iters.cpu().numpy()
+        retry.extend(s + i for i in np.nonzero(~conv)[0])
+        del C_dev
+        if verbose:
+            logger.info(f"Calculated {e:d}/{B:d} bootstrap samples (batched)")
+    del th  # release the 4 B/element fast plane before the retries
+    n_fail = 0
+    for b in retry:
+        c = torch.as_tensor(np.asarray(counts[b], dtype=np.float32), device=dev)
+        f_b = torch.as_tensor(f_boots[b], device=dev)
+        f_b, _it, _g, _d, converged, floor_b = _retry_polish(
+            u_hi, u_lo, c, N_k64, f_b, logN, tol, gamma, maxiter
+        )
+        at_floor[b] = converged and floor_b
+        n_fail += not converged
+        f_boots[b] = f_b.cpu().numpy()
+    info = _boot_info(at_floor, B, n_fail)
+    walls["total_s"] = time.time() - t_all
+    info["phase_walls"] = walls
+    info["fast_iters"] = fast_iters
+    info["exact_iters"] = exact_iters
+    info["exact_deltas"] = deltas_g.cpu().numpy()
+    return f_boots, n_fail, info
+
+
+def solve_mbar_dd_bootstrap(u_kn, N_k, f_k, counts, tol=1.0e-12, options=None, verbose=False,
+                            device=None):
+    """Base solve + bootstrap replicates on one set of dd planes.
+
+    The counterpart of :func:`pymbar_tpu.solvers_large.solve_mbar_dd_bootstrap`,
+    the front door of ``MBAR(u_kn, N_k, n_bootstraps=B)`` on the dd route:
+    the planes are split once (on u_kn's device for a tensor, on the host
+    for numpy, then moved to ``device``), the base problem solves with
+    :func:`solve_mbar_dd`, and every replicate rides
+    :func:`bootstrap_polish_dd` on the same planes with the base chord
+    factor.  All states must have samples.  Returns (f_k, f_boots, n_fail,
+    info), ``info`` the base solve's plus ``bootstrap_at_floor``,
+    ``bootstrap_n_at_floor`` and ``bootstrap_n_tol_converged``.
+    """
+    options = dict(options or {})
+    if torch.is_tensor(u_kn):
+        uh, ul = dev_split_planes(u_kn)
+    else:
+        dev = target_device(device)
+        uh, ul = (torch.as_tensor(p, device=dev) for p in host_split_planes(u_kn))
+    f_k = np.asarray(f_k, dtype=np.float64)
+    f_sol, info = solve_mbar_dd(
+        uh, ul, N_k, f_k=f_k - f_k[0], tol=tol,
+        **{k: options[k] for k in ("f32_tol", "f32_maxiter", "polish_maxiter", "gamma")
+           if k in options},
+    )
+    f_sol = f_sol - f_sol[0]
+    f_boots, n_fail, boot_info = bootstrap_polish_dd(
+        uh, ul, N_k, f_sol, info["hinv"], counts, tol=tol, verbose=verbose
+    )
+    info["bootstrap_at_floor"] = boot_info["at_floor"]
+    info["bootstrap_n_at_floor"] = boot_info["n_at_floor"]
+    info["bootstrap_n_tol_converged"] = boot_info["n_tol_converged"]
+    return f_sol, f_boots - f_boots[:, :1], n_fail, info

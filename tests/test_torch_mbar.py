@@ -211,8 +211,9 @@ def test_parameter_errors(probe):
         kw["solver_protocol"] = (dict(method="nope"),)
     elif probe == "bar_init":
         kw["initialize"] = "BAR"
-    elif probe == "bootstraps":
+    elif probe == "bootstraps":  # bootstraps with a BAR start: BAR is not ported yet
         kw["n_bootstraps"] = 10
+        kw["initialize"] = "BAR"
     elif probe == "mesh":  # the mesh bootstrap is not ported yet
         kw["mesh"] = default_mesh(2, device="cpu")
         kw["n_bootstraps"] = 10
