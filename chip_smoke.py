@@ -9,14 +9,21 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    csrc/wsum_split.cu, csrc/lognum.cu and csrc/roofline.cu with nvcc, in
    parallel.
 1. Each kernel against its plain PyTorch version on the same CUDA tensors.
-   K1 wsum_dd: relative error of S <= 1e-13 at several shapes, pad columns
-   change nothing, an all-pad matrix gives S == 0 exactly, the launch count
-   rises; times at the flagship shape.  The many-state route (column shift,
-   K3 denom_sums_dd, K4 wsum_denom_dd): the shift exact, s and S <= 1e-13
-   at (8192, 65536) with and without counts, (5000, 1000), (1, 1) and the
-   slice's (8192, 327680); wsum_dd's split route against K1 on the same
-   planes; appended pad columns, an all-pad matrix, the launch counts;
-   times of each kernel, of the split route and of K1 at the slice's shape.
+   K1 wsum_dd: relative error of S <= 1e-13 at K = 1, 3, 257, 1000 (not a
+   multiple of the cluster's blocks or rows), 4096, the fused gate and one
+   state above it (the two-pass form), N below one column tile and N not a
+   multiple of it nor of 4, the flagship's mesh shard (1024, 249856) with
+   and without counts, and the flagship shape; two calls give the same bits
+   (both forms); pad columns change nothing, an all-pad matrix gives S == 0
+   exactly (both forms), the launch count rises; times at the flagship
+   shape.  The many-state route (column shift, K3 denom_sums_dd, K4
+   wsum_denom_dd): the shift exact, s and S <= 1e-13 at (8192, 65536) with
+   and without counts, (5000, 1000), (1, 1), (8200, 4099) with counts,
+   (33, 127) and the slice's (8192, 327680); K4 gives the same bits twice,
+   and a masked column (d = 0) whose exp overflows adds exactly 0 and no
+   NaN; wsum_dd's split route against K1 on the same planes; appended pad
+   columns, an all-pad matrix, the launch counts; times of each kernel, of
+   the split route and of K1 at the slice's shape.
    The lognum family (K6 logden_dd, K7 lognum_dd, K5 lognum_fused_dd) at
    (1024, 65536), (5, 1003), (1, 1), (4096, 8192) + 77 pad columns,
    (3000, 4096), the flagship shard (1024, 249856) and the flagship shape:
@@ -31,7 +38,8 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    doubles a relative error each step, the exp map contracts), the
    pinned-tile weight sum at (1024, 512, 64 steps), (4096, 128, 32) and
    (5, 16, 3) against steps x S(tile) and, at one step, against K1 itself
-   (1e-13 relative); then the probe path, each probe with its launch count
+   bit for bit (K8b runs K1's fused kernel, K8c its two passes); then the
+   probe path, each probe with its launch count
    set to 0 before it: FMA FLOP/s (float32, float64), f64 exps/s, K8b's
    and K8c's elements/s.  The float64 FMA rate must not exceed 105% of
    34 TFLOP/s (nor float32 105% of 67), and each pinned ceiling must reach
@@ -299,12 +307,50 @@ def main():
             fail(f"{label}: kernel vs plain relative error {e:.3e} > {S_REL_TOL:g}")
         return S
 
+    def rand_counts(N):
+        return torch.randint(0, 4, (N,), generator=gen, device=dev).to(torch.float32)
+
+    def same_bits(label, fn):
+        a, b = fn(), fn()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"{label}: two calls on the same inputs gave different bits")
+        checks.append(dict(kernel="wsum_dd", case=f"{label}: two calls", same_bits=True))
+
     uh, ul, gh, gl = make_planes(torch, 1024, 65536, gen, dev)
     compare("1024x65536", uh, ul, gh, gl)
-    c = torch.randint(0, 4, (65536,), generator=gen, device=dev).to(torch.float32)
+    c = rand_counts(65536)
     compare("1024x65536 counts", uh, ul, gh, gl, c)
+    same_bits("1024x65536 counts (fused)", lambda: wsum.wsum_dd(uh, ul, gh, gl, c))
     compare("3x1000 ragged", *make_planes(torch, 3, 1000, gen, dev))
     compare("4096x8192", *make_planes(torch, 4096, 8192, gen, dev))
+    # K = 1; K not a multiple of the cluster's blocks or of their rows; N
+    # below one column tile and not a multiple of it (nor of 4: the 4-byte
+    # copies); the fused gate and one state above it (the two-pass form)
+    compare("1x1", *make_planes(torch, 1, 1, gen, dev))
+    compare("1x5000 counts", *make_planes(torch, 1, 5000, gen, dev), rand_counts(5000))
+    compare("1000x4099 counts", *make_planes(torch, 1000, 4099, gen, dev), rand_counts(4099))
+    compare("257x70", *make_planes(torch, 257, 70, gen, dev))
+    compare("1024x15 (below one column tile)", *make_planes(torch, 1024, 15, gen, dev))
+    gate = wsum._FUSED_MAX_K
+    compare(f"{gate}x5000 counts (fused gate)", *make_planes(torch, gate, 5000, gen, dev),
+            rand_counts(5000))
+    above = make_planes(torch, gate + 1, 5000, gen, dev)
+    c = rand_counts(5000)
+    compare(f"{gate + 1}x5000 counts (two passes)", *above, c)
+    same_bits(f"{gate + 1}x5000 counts (two passes)", lambda: wsum.wsum_dd(*above, c))
+    S_pad = dd_to_f64(*wsum.wsum_dd(
+        torch.full((gate + 1, 33), 1.0e10, dtype=torch.float32, device=dev),
+        torch.zeros((gate + 1, 33), dtype=torch.float32, device=dev), *above[2:]))
+    if not bool((S_pad == 0).all()):
+        fail("an all-pad matrix gave S != 0 on the two-pass form")
+    del above
+    # the flagship's mesh shard (4 shards of 999,424 samples), with and
+    # without counts
+    shard = make_planes(torch, FLAGSHIP_K, FLAGSHIP_K * FLAGSHIP_NPK // 4, gen, dev)
+    compare(f"{FLAGSHIP_K}x{FLAGSHIP_K * FLAGSHIP_NPK // 4} mesh shard", *shard)
+    compare(f"{FLAGSHIP_K}x{FLAGSHIP_K * FLAGSHIP_NPK // 4} mesh shard counts", *shard,
+            rand_counts(shard[0].shape[1]))
+    del shard
     uh, ul, gh, gl = make_planes(torch, 1024, 4096, gen, dev)
     S0 = compare("1024x4096", uh, ul, gh, gl)
     uhp = torch.cat([uh, torch.full((1024, 77), 1.0e10, dtype=torch.float32, device=dev)], 1)
@@ -386,6 +432,35 @@ def main():
     route_vs_k1(f"{SLICE_K}x65536 counts", uh, ul, gh, gl, c)
     compare_split("5000x1000 ragged", *make_planes(torch, 5000, 1000, gen, dev))
     compare_split("1x1", *make_planes(torch, 1, 1, gen, dev))
+    # rows not a multiple of the row block; N not a multiple of the column
+    # tile nor of 4 (the row pass's 4-byte copies); N below one tile
+    compare_split(f"{SLICE_K + 8}x4099 counts", *make_planes(torch, SLICE_K + 8, 4099, gen, dev),
+                  rand_counts(4099))
+    compare_split("33x127", *make_planes(torch, 33, 127, gen, dev))
+    # two calls give the same bits; a masked column (d = 0) whose exp
+    # overflows (m_n far below a_kn) adds exactly 0 and no NaN
+    uh, ul, gh, gl = make_planes(torch, SLICE_K, 4096, gen, dev)
+    c = rand_counts(4096)
+    m, _, (dh, dl), _ = split_steps(uh, ul, gh, gl, c)
+    k4 = lambda *a: wsum_split.wsum_denom_dd(uh, ul, gh, gl, *a, c)  # noqa: E731
+    a, b = k4(m, dh, dl), k4(m, dh, dl)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        fail("wsum_denom_dd: two calls on the same inputs gave different bits")
+    cols = [5, 4000]
+    m2, dh2, dl2 = m.clone(), dh.clone(), dl.clone()
+    m2[cols], dh2[cols], dl2[cols] = -2000.0, 0.0, 0.0
+    S_masked = dd_to_f64(*k4(m2, dh2, dl2))
+    keep = torch.ones(4096, dtype=torch.bool, device=dev)
+    keep[cols] = False
+    S_drop = dd_to_f64(*wsum_split.wsum_denom_dd(
+        uh[:, keep].contiguous(), ul[:, keep].contiguous(), gh, gl,
+        *(t[keep].contiguous() for t in (m, dh, dl, c))))
+    e_mask = rel_err(S_masked, S_drop)
+    split_checks.append(dict(case=f"{SLICE_K}x4096 masked overflowing columns", rel_err=e_mask,
+                             finite=bool(torch.isfinite(S_masked).all()), same_bits=True))
+    if not (bool(torch.isfinite(S_masked).all()) and e_mask <= S_REL_TOL):
+        fail(f"a masked column with an overflowing exp changed S ({e_mask:.3e}) or gave NaN")
+    del uh, ul, m, dh, dl, m2, dh2, dl2, keep, a, b
     uh, ul, gh, gl = make_planes(torch, SLICE_K, 4096, gen, dev)
     S0 = dd_to_f64(*wsum.wsum_dd(uh, ul, gh, gl))
     uhp = torch.cat([uh, torch.full((SLICE_K, 77), 1.0e10, dtype=torch.float32, device=dev)], 1)
@@ -555,11 +630,13 @@ def main():
         probe_checks.append(dict(kernel="wsum_pinned", K=K_p, tile=tile, steps=steps, rel_err=e))
         if not e <= S_REL_TOL:
             fail(f"wsum_pinned ({K_p}, {tile}, {steps}): vs plain {e:.3e} > {S_REL_TOL:g}")
-        if steps == 64:
-            e1 = rel_err(dd_to_f64(*roofline.wsum_pinned(*tp, 1)), dd_to_f64(*wsum.wsum_dd(*tp)))
-            probe_checks.append(dict(kernel="wsum_pinned", case="one step vs K1", rel_err=e1))
-            if not e1 <= S_REL_TOL:
-                fail(f"wsum_pinned at one step differs from K1 by {e1:.3e}")
+        if K_p in (1024, 4096):  # K8b's fused kernel and K8c's two passes
+            one, k1 = roofline.wsum_pinned(*tp, 1), wsum.wsum_dd(*tp)
+            same = torch.equal(one[0], k1[0]) and torch.equal(one[1], k1[1])
+            probe_checks.append(dict(kernel="wsum_pinned", K=K_p, case="one step vs K1",
+                                     same_bits=same))
+            if not same:
+                fail(f"wsum_pinned at one step differs from K1 at K = {K_p}")
     torch.cuda.synchronize()
 
     # K1 streaming at K = 4096, the K of K8c's ceiling

@@ -32,15 +32,18 @@
 //     sum rescaled whenever the float32 max rises, so the final shift is the
 //     contract's m_n and each element costs one exp.
 //   lognum_prep (K7's first step): ld_n into f64 and r_n = 1.
-//   wsum_rows (wsum_rows.cuh, K1's row pass) with g = (-m_k, 0), the f64 ld
-//     as the column shift and r_n as the column weight (0 on K5's pad
-//     columns), then lognum_finish: the per-split partials summed in a fixed
-//     order, optionally log + m_k, split into (hi, lo).
-// So K5 reads the planes twice (16.4 GB, a 4.9 ms floor at the flagship),
-// like K1: the TPU kernel's single read keeps a whole K x tile block in
-// VMEM between its two reductions, which a Hopper SM's 227 KB of shared
-// memory cannot hold at K = 1024 (one read with k-blocked tiles is later
-// work).  K6 followed by K7 on K5's masked ld gives K5's bits.
+//   wsum_rows (wsum_rows.cuh, the shared row pass: 32-row blocks over
+//     128-column tiles of both planes staged by cp.async in a 3-stage ring)
+//     with g = (-m_k, 0), the f64 ld as the column shift and r_n as the
+//     column weight (0 on K5's pad columns, which the row pass skips), then
+//     lognum_finish: the per-split partials summed in a fixed order,
+//     optionally log + m_k, split into (hi, lo).
+// So K5 reads the planes twice (16.4 GB, a 4.9 ms floor at the flagship)
+// and K7 once after its prep.  K1's single-read cluster kernel
+// (wsum_fused.cuh) shows the way to one read for K5: its column pass is
+// K1's with a log, and its row pass needs the ld of the whole column,
+// which the cluster already shares.  K6 followed by K7 on K5's masked ld
+// gives K5's bits.
 
 #include "wsum_rows.cuh"
 
@@ -150,10 +153,8 @@ int rows_and_finish(const float* uh, const float* ul, const float* m_k, const do
   if (n_split <= 0 || n_split > 65535) return (int)cudaErrorInvalidValue;
   const unsigned k_blocks = (unsigned)((K + kFinishThreads - 1) / kFinishThreads);
   row_shift<<<k_blocks, kFinishThreads, 0, st>>>(m_k, K, g_hi, g_lo);
-  const int64_t cols_per_split = (N + n_split - 1) / n_split;
-  const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, n_split);
-  wsum_rows<false><<<grid, kRowThreads, 0, st>>>(uh, ul, g_hi, g_lo, ld64, r, K, N,
-                                                 cols_per_split, 0, partial);
+  const cudaError_t e = launch_rows(uh, ul, g_hi, g_lo, ld64, r, K, N, n_split, partial, st);
+  if (e != cudaSuccess) return (int)e;
   lognum_finish<<<k_blocks, kFinishThreads, 0, st>>>(partial, K, n_split, m_k, take_log,
                                                      out_hi, out_lo);
   return (int)cudaGetLastError();

@@ -14,32 +14,51 @@
 // rebuilt as hi + lo in double and all arithmetic is plain f64, so FMA
 // contraction is harmless.
 //
-// What bounds it on the H100: the kernel reads both f32 planes twice
-// (16 B per element, 16.4 GB for the 1024 x 999424 flagship, ~4.9 ms at
-// 3.35 TB/s) and evaluates two f64 exps per element (~2e9 x ~20 DFMA, ~2.5 ms
-// at the FP64 pipe's ~16.7 TFMA/s), so it is memory-bound with the FP64 pipe
-// close behind.  Design: three launches, no atomics, deterministic.
-//   1. wsum_columns (wsum_columns.cuh): one thread per column, threads
-//      across n so every row load is coalesced; an online max with a
-//      rescaled sum gives m_n and s_n with one exp per element; writes m_n
-//      and r_n (f64 scratch).
-//   2. wsum_rows (wsum_rows.cuh, shared with K4): grid (k tiles of 8 rows,
-//      n splits); each thread walks its columns once for all rows of the
-//      tile, accumulates T_kn r_n in f64 registers, and the block reduces
-//      with warp shuffles into partial[split, k].
-//   3. wsum_finish (wsum_rows.cuh): sums the partials over the splits in a
-//      fixed order and splits S into hi/lo float32.
-// Recomputing T in pass 2 costs one more read of the planes (8 B/element)
-// where storing it would cost a write and a read (16 B/element in f64).
-// One read with T kept on chip (TMA tiles) is later work.  The same two
-// passes over one L2-resident tile are the roofline probes of roofline.cu.
+// Two forms, chosen by the caller (ops/wsum.py) from K:
+//   * up to the gate wsum._FUSED_MAX_K = 1024 (the kernel takes K <= 4096):
+//     the single-read kernel of wsum_fused.cuh, as the TPU kernel does it --
+//     each column tile read once by a thread-block cluster that shares its
+//     K rows, the shift m_n the float32 max of the hi words, one f64 exp
+//     per element kept in registers between the column sums and the row
+//     sums.  Its bound is one read of the planes (8 B/element, 2.44 ms at
+//     the 1024 x 999424 flagship); what holds it is its per-tile barriers
+//     and reductions (see wsum_fused.cuh).
+//   * above it: two passes.  wsum_columns (wsum_columns.cuh: one thread per
+//     column, an online max with a rescaled sum) writes m_n and r_n, then
+//     the shared row pass of wsum_rows.cuh recomputes T on its cp.async
+//     tiles.  Two reads (16 B/element) and two exps per element, yet at
+//     K = 2048 faster than clusters of 4 (profiling/torch_kernel_forms.py).
+// Both end in wsum_finish: per-block partials summed in a fixed order, no
+// atomics, the same bits on every run.
 
 #include "wsum_columns.cuh"
+#include "wsum_fused.cuh"
 #include "wsum_rows.cuh"
 
-// Launches the three kernels on `stream` and returns cudaGetLastError().
-// The caller allocates m and r ((N,) float64), partial ((n_split, K)
-// float64) and the (K,) float32 outputs; c may be null.
+// Each launcher runs its kernels on `stream` and returns cudaGetLastError()
+// (or the error of the launch API; cudaErrorInvalidValue for a shape it
+// cannot take).  The caller allocates the (K,) float32 outputs and the
+// scratch; c may be null.
+
+// The fused form: partial is (n_clusters, K) float64, n_clusters between 1
+// and the number of 16-column tiles.
+extern "C" int wsum_fused_launch(const float* uh, const float* ul, const float* gh,
+                                 const float* gl, const float* c, int K, int64_t N,
+                                 int n_clusters, double* partial, float* s_hi, float* s_lo,
+                                 void* stream) {
+  return (int)launch_fused_and_finish(uh, ul, gh, gl, c, K, N, n_clusters, partial, s_hi, s_lo,
+                                      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The clusters of the fused form for K states that the current card holds
+// at once, in *out (0 when K exceeds the fused form).
+extern "C" int wsum_fused_clusters(int K, int* out) {
+  const int C = fused_cluster_size(K);
+  *out = C ? fused_max_clusters(C) : 0;
+  return (int)cudaGetLastError();
+}
+
+// The two-pass form: m and r are (N,) float64, partial (n_split, K) float64.
 extern "C" int wsum_dd_launch(const float* uh, const float* ul, const float* gh,
                               const float* gl, const float* c, int K, int64_t N,
                               int n_split, double* m, double* r, double* partial,
@@ -50,7 +69,6 @@ extern "C" int wsum_dd_launch(const float* uh, const float* ul, const float* gh,
   if (col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   wsum_columns<false><<<(unsigned)col_blocks, kColThreads, 0, st>>>(uh, ul, gh, gl, c, K, N, 0,
                                                                      m, r);
-
-  launch_rows_and_finish(uh, ul, gh, gl, m, r, K, N, n_split, partial, s_hi, s_lo, st);
-  return (int)cudaGetLastError();
+  return (int)launch_rows_and_finish(uh, ul, gh, gl, m, r, K, N, n_split, partial, s_hi, s_lo,
+                                     st);
 }

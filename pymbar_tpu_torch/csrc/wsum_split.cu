@@ -20,8 +20,9 @@
 // What bounds them on the H100: bytes.  The shift reads the hi plane
 // (4 B/element), K3 and K4 both planes once (8 B/element each): at the
 // 8192 x 327680 many-state slice 10.7 + 21.5 + 21.5 GB, 3.2 + 6.4 + 6.4 ms
-// at 3.35 TB/s.  One f64 exp per element in K3 and K4 (~2.7e9 x ~20 FP64
-// ops, ~1.6 ms at ~34 TFLOP/s) stays below that.
+// at 3.35 TB/s.  One f64 exp per element in K3 and K4 (2.7e9 exps, ~3.4 ms
+// at the measured 0.79e12 exps/s) is not far below that, so K4's row pass
+// keeps copies in flight (cp.async tiles) while it computes.
 // Design: the TPU kernels carry their sums across a sequential grid, which
 // Hopper blocks (run in no order) cannot; every reduction here is two-level
 // and deterministic, with no atomics.
@@ -30,8 +31,11 @@
 //     each writes its k block's max / sum to partial[kb, n].
 //   shift_finish / denom_finish: one thread per column folds the k-block
 //     partials in a fixed order (denom_finish splits s into hi/lo).
-//   K4: denom_recip turns (d, c) into r_n = c_n / d_n (0 where d_n <= 0)
-//     and m_n into f64, then K1's row pass and finish (wsum_rows.cuh).
+//   K4: denom_recip turns (d, c) into r_n = c_n / d_n (0 where d_n <= 0,
+//     and NaN) and m_n into f64, then the shared row pass and finish
+//     (wsum_rows.cuh: 32-row blocks over 128-column tiles staged by
+//     cp.async in a 3-stage ring; a column with r_n == 0 is skipped by a
+//     branch, so an overflowing exp there adds exactly 0).
 
 #include "wsum_rows.cuh"
 
@@ -167,6 +171,6 @@ extern "C" int wsum_denom_launch(const float* uh, const float* ul, const float* 
   const int64_t col_blocks = (N + kColThreads - 1) / kColThreads;
   if (col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   denom_recip<<<(unsigned)col_blocks, kColThreads, 0, st>>>(m, dh, dl, c, N, m64, r);
-  launch_rows_and_finish(uh, ul, gh, gl, m64, r, K, N, n_split, partial, s_hi, s_lo, st);
-  return (int)cudaGetLastError();
+  return (int)launch_rows_and_finish(uh, ul, gh, gl, m64, r, K, N, n_split, partial, s_hi, s_lo,
+                                     st);
 }

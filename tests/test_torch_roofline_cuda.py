@@ -73,12 +73,14 @@ def test_wsum_pinned_matches_plain(dev, K, tile, steps):
     assert float(((S - S_ref).abs() / S_ref).max()) <= 1e-13
 
 
-def test_one_step_is_the_production_kernel(dev):
-    """steps = 1 reads the tile once, as K1 does: the same sums."""
-    planes = tr.pinned_tile(1024, 512, dev, seed=7)
-    S1 = dd_to_f64(*tr.wsum_pinned(*planes, 1))
-    S = dd_to_f64(*tw.wsum_dd(*planes))
-    assert float(((S1 - S).abs() / S).max()) <= 1e-13
+@pytest.mark.parametrize("K,tile", [(1024, 512), (4096, 128)])
+def test_one_step_is_the_production_kernel(dev, K, tile):
+    """steps = 1 runs K1's own kernel on the tile, as K1 does: the same
+    bits (the fused form at K = 1024, the two passes at K = 4096)."""
+    planes = tr.pinned_tile(K, tile, dev, seed=7)
+    S1 = tr.wsum_pinned(*planes, 1)
+    S = tw.wsum_dd(*planes)
+    assert torch.equal(S1[0], S[0]) and torch.equal(S1[1], S[1])
 
 
 def test_measurements_are_rates(dev):

@@ -149,3 +149,80 @@ def test_wrapper_rejects_what_it_cannot_take(bad, error):
         args = {k: (None if v is None else v.to("meta")) for k, v in args.items()}
     with pytest.raises(error):
         tw.wsum_dd(**args)
+
+
+# The fused kernel's plan (csrc/wsum_fused.cuh), mirrored in Python: the
+# card's shared memory per block (227 KB) and the cluster limit bound it.
+_SMEM_PER_BLOCK = 232448
+
+
+@pytest.mark.parametrize(
+    "K,cluster", [(1, 1), (3, 1), (512, 1), (513, 2), (1000, 2), (1024, 2), (1025, 3),
+                  (4096, 8), (4097, 0)]
+)
+def test_fused_cluster_size(K, cluster):
+    """ceil(K / 512) blocks of at most 512 rows, at most 8 (the portable
+    cluster); 0 above that, where K1 takes its two-pass form."""
+    assert tw.fused_cluster(K) == cluster
+
+
+def test_fused_plan_fits_the_card():
+    assert tw.fused_smem_bytes() <= _SMEM_PER_BLOCK
+    # the gate never sends a K the fused kernel cannot hold
+    assert 0 < tw._FUSED_MAX_K <= tw._FUSED_ROWS * tw._FUSED_MAX_CLUSTER
+    assert tw._FUSED_MAX_K <= tw._SPLIT_ROUTE_K
+
+
+@pytest.mark.parametrize(
+    "N,max_clusters,expected", [(999424, 66, 66), (999424, 30, 30), (31, 66, 2), (1, 66, 1),
+                                (16, 66, 1), (17, 66, 2), (1000, 0, 1)]
+)
+def test_fused_partials(N, max_clusters, expected):
+    """One cluster per resident slot, never more than the column tiles."""
+    assert tw.fused_partials(N, max_clusters) == expected
+
+
+def _exp_tab(x, consts):
+    """csrc/wsum_rows.cuh's exp_tab step by step, each fma in extended
+    precision (np.longdouble) and rounded once to f64, as on the card."""
+    L = np.longdouble
+
+    def fma(a, b, c):
+        return float(L(a) * L(b) + L(c))
+
+    shifter = 6755399441055744.0
+    x = -1400.0 if x < -1400.0 else (800.0 if x > 800.0 else x)
+    t = fma(x, consts["kInvLn2x64"], shifter)
+    n = int(np.array([t]).view(np.int64)[0] & 0xFFFFFFFF)
+    n = n - 2**32 if n >= 2**31 else n
+    kf = t - shifter
+    r = fma(kf, -consts["kLn2d64Hi"], x)
+    r = fma(kf, -consts["kLn2d64Lo"], r)
+    q = fma(r, 1.0 / 120.0, 1.0 / 24.0)
+    for c in (1.0 / 6.0, 0.5, 1.0):
+        q = fma(r, q, c)
+    q = r * q
+    tj = float(np.exp2(L(n & 63) / 64))
+    p = fma(tj, q, tj)
+    k = n >> 6
+    return p * 2.0 ** (k >> 1) * 2.0 ** (k - (k >> 1))
+
+
+def test_exp_tab_algorithm_within_an_ulp():
+    """The kernels' branch-free exp (its constants read from the source)
+    within an ulp of exp over the range the weight sums meet, 0 below
+    underflow and inf above overflow, as exp."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tw.__file__).parent.parent / "csrc" / "wsum_rows.cuh").read_text()
+    consts = {name: float(re.search(rf"{name} = ([0-9.e+-]+);", src).group(1))
+              for name in ("kInvLn2x64", "kLn2d64Hi", "kLn2d64Lo")}
+    rng = np.random.default_rng(7)
+    xs = np.concatenate([rng.uniform(-40.0, 1.0, 1500), rng.uniform(-700.0, 700.0, 500),
+                         [0.0, -1e-300, 1e-17, -0.0054, -0.0055, 709.7, -708.3]])
+    err = max(abs(_exp_tab(x, consts) - float(np.exp(np.longdouble(x)))) / float(
+        np.exp(np.longdouble(x))) for x in xs)
+    assert err <= np.finfo(np.float64).eps
+    assert _exp_tab(-1.0e300, consts) == 0.0 and _exp_tab(-np.inf, consts) == 0.0
+    assert _exp_tab(750.0, consts) == np.inf

@@ -35,7 +35,14 @@ def _planes(K, N, seed, dev):
 @pytest.mark.parametrize(
     "K,N,counts",
     [(1024, 65536, False), (1024, 65536, True), (3, 1000, False), (4096, 8192, False),
-     (1, 1, False), (7, 33, True)],
+     (1, 1, False), (7, 33, True),
+     # K not a multiple of the cluster or of 256 rows; N not a multiple of
+     # the column tile nor of 4 (the 4-byte copies)
+     (1000, 4099, True), (257, 70, False),
+     # N below one column tile; the fused limit and one above (two passes)
+     (1024, 31, False), (1025, 5000, True), (4095, 130, False),
+     # the flagship's mesh shard (4 shards of 999,424 samples)
+     (1024, 249856, False), (1024, 249856, True)],
 )
 def test_kernel_matches_plain(dev, K, N, counts):
     """Both are f64 inside; only the summation order differs: 1e-13."""
@@ -59,3 +66,22 @@ def test_kernel_pad_columns(dev):
     assert float(((S1 - S0).abs() / S0).max()) <= 1e-13
     S_pad = dd_to_f64(*tw.wsum_dd(pad_h.contiguous(), torch.zeros_like(pad_h), gh, gl))
     assert bool((S_pad == 0).all())
+
+
+@pytest.mark.parametrize("K,N", [(1024, 65536), (4096, 8192)])
+def test_kernel_gives_the_same_bits_twice(dev, K, N):
+    """No atomics: the fused and the two-pass forms are deterministic."""
+    uh, ul, gh, gl, c = _planes(K, N, 3, dev)
+    a = tw.wsum_dd(uh, ul, gh, gl, c)
+    b = tw.wsum_dd(uh, ul, gh, gl, c)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("K", [2500, 4096])
+def test_fused_form_up_to_its_cluster_limit(dev, monkeypatch, K):
+    """Clusters of 5 and 8 blocks, past the gate's K."""
+    monkeypatch.setattr(tw, "_FUSED_MAX_K", 4096)
+    uh, ul, gh, gl, c = _planes(K, 20000, K, dev)
+    S = dd_to_f64(*tw.wsum_dd(uh, ul, gh, gl, c))
+    S_ref = dd_to_f64(*tw.wsum_dd_plain(uh, ul, gh, gl, c))
+    assert float(((S - S_ref).abs() / S_ref.abs()).max()) <= 1e-13

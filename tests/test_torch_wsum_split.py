@@ -253,3 +253,23 @@ def test_wrappers_reject_what_they_cannot_take(bad, error):
     if bad in ("f64_m", "m_length", "meta_device"):
         with pytest.raises(error):
             tsplit.denom_sums_dd(*(args[k] for k in ("u_hi", "u_lo", "g_hi", "g_lo", "m_n")))
+
+
+@pytest.mark.parametrize(
+    "K,N,splits",
+    [(8192, 327680, 5), (1024, 999424, 33), (1024, 249856, 33), (4096, 262144, 9),
+     (1, 1, 1), (33, 127, 1), (8192, 4096, 4), (5, 1000000, 977)],
+)
+def test_row_splits(K, N, splits):
+    """~1056 blocks of 32 rows (8 per SM), each split at least 1024 columns
+    wide, at most 65535 splits."""
+    assert tsplit.row_splits(K, N) == splits
+    k_tiles = -(-K // tsplit._ROWS_PER_BLOCK)
+    assert splits == 1 or k_tiles * (splits - 1) < tsplit._ROW_TARGET_BLOCKS
+    assert splits == 1 or -(-N // splits) >= tsplit._MIN_COLS_PER_SPLIT // 2
+
+
+def test_row_pass_plan_fits_two_blocks_per_sm():
+    """Two blocks of the row pass share an SM's 228 KB (1 KB reserved per
+    block)."""
+    assert 2 * (tsplit.row_smem_bytes() + 1024) <= 233472

@@ -40,7 +40,10 @@ def _rel(a, b):
 
 
 SHAPES = [(8192, 65536, False), (8192, 65536, True), (5000, 1000, False), (1, 1, False),
-          (7, 33, True)]
+          (7, 33, True),
+          # rows not a multiple of the row block, N not of the column tile
+          # nor of 4 (the row pass's 4-byte copies), N below one tile
+          (8200, 4099, True), (33, 127, False)]
 
 
 @pytest.mark.parametrize("K,N,counts", SHAPES)
@@ -84,3 +87,27 @@ def test_split_route_pad_columns(dev):
     assert _rel(S1, S0) <= 1e-13
     S_pad = dd_to_f64(*tw.wsum_dd(pad_h.contiguous(), torch.zeros_like(pad_h), gh, gl))
     assert bool((S_pad == 0).all())
+
+
+def test_wsum_denom_masked_column_adds_zero_and_same_bits(dev):
+    """A column with d = 0 whose exp overflows (m_n far below a) adds
+    exactly 0 and no NaN; two calls give the same bits."""
+    uh, ul, gh, gl, c = _planes(8192, 4096, 21, dev)
+    m = ts.column_shift(uh, gh)
+    dh, dl = ts.denom_sums_dd(uh, ul, gh, gl, m)
+    S0 = ts.wsum_denom_dd(uh, ul, gh, gl, m, dh, dl, c)
+    assert torch.equal(S0[0], ts.wsum_denom_dd(uh, ul, gh, gl, m, dh, dl, c)[0])
+    m2, dh2, dl2 = m.clone(), dh.clone(), dl.clone()
+    m2[[5, 4000]] = -2000.0  # exp(a - m) = exp(~2000): inf in f64
+    dh2[[5, 4000]] = 0.0
+    dl2[[5, 4000]] = 0.0
+    S1 = ts.wsum_denom_dd(uh, ul, gh, gl, m2, dh2, dl2, c)
+    keep = torch.ones(4096, dtype=torch.bool, device=dev)
+    keep[[5, 4000]] = False
+    cols = [t[keep].contiguous() for t in (m, dh, dl, c)]
+    S_ref = dd_to_f64(*ts.wsum_denom_dd(uh[:, keep].contiguous(), ul[:, keep].contiguous(),
+                                        gh, gl, *cols))
+    S = dd_to_f64(*S1)
+    assert bool(torch.isfinite(S).all())
+    assert _rel(S, S_ref) <= 1e-13
+    assert _rel(S, dd_to_f64(*ts.wsum_denom_dd_plain(uh, ul, gh, gl, m2, dh2, dl2, c))) <= 1e-13
