@@ -10,14 +10,16 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    parallel.
 1. Each kernel against its plain PyTorch version on the same CUDA tensors.
    K1 wsum_dd: relative error of S <= 1e-13 at K = 1, 3, 257, 1000 (not a
-   multiple of the cluster's blocks or rows), 4096, the fused gate and one
-   state above it (the two-pass form), N below one column tile and N not a
-   multiple of it nor of 4, the flagship's mesh shard (1024, 249856) with
-   and without counts, and the flagship shape; two calls give the same bits
-   (both forms); pad columns change nothing, an all-pad matrix gives S == 0
-   exactly (both forms), the launch count rises; times at the flagship
-   shape.  The many-state route (column shift, K3 denom_sums_dd, K4
-   wsum_denom_dd): the shift exact, s and S <= 1e-13 at (8192, 65536) with
+   multiple of the cluster's blocks or rows), the split-route gate 4096
+   (and 4097 states, which take the split route and launch no K1), K1's
+   limit 8192 (clusters of 16 blocks; 8193 states must raise), N below one
+   column tile and N not a multiple of it nor of 4, the flagship's mesh
+   shard (1024, 249856) with and without counts, and the flagship shape;
+   two calls give the same bits (clusters of 2 and of 8); pad columns
+   change nothing, an all-pad matrix gives S == 0 exactly (clusters of 2
+   and of 8), the launch count rises; times at the flagship shape.  The
+   many-state route (column shift, K3 denom_sums_dd, K4 wsum_denom_dd):
+   the shift exact, s and S <= 1e-13 at (8192, 65536) with
    and without counts, (5000, 1000), (1, 1), (8200, 4099) with counts,
    (33, 127) and the slice's (8192, 327680); K4 gives the same bits twice,
    and a masked column (d = 0) whose exp overflows adds exactly 0 and no
@@ -38,7 +40,7 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    doubles a relative error each step, the exp map contracts), the
    pinned-tile weight sum at (1024, 512, 64 steps), (4096, 128, 32) and
    (5, 16, 3) against steps x S(tile) and, at one step, against K1 itself
-   bit for bit (K8b runs K1's fused kernel, K8c its two passes); then the
+   bit for bit (both run K1's kernel: clusters of 2 and of 8); then the
    probe path, each probe with its launch count
    set to 0 before it: FMA FLOP/s (float32, float64), f64 exps/s, K8b's
    and K8c's elements/s.  The float64 FMA rate must not exceed 105% of
@@ -325,25 +327,47 @@ def main():
     compare("4096x8192", *make_planes(torch, 4096, 8192, gen, dev))
     # K = 1; K not a multiple of the cluster's blocks or of their rows; N
     # below one column tile and not a multiple of it (nor of 4: the 4-byte
-    # copies); the fused gate and one state above it (the two-pass form)
+    # copies); K at the split-route gate (clusters of 8) and one above (the
+    # split route); K1's limit, 8192 states (clusters of 16, the
+    # non-portable size) and one above, which must raise
     compare("1x1", *make_planes(torch, 1, 1, gen, dev))
     compare("1x5000 counts", *make_planes(torch, 1, 5000, gen, dev), rand_counts(5000))
     compare("1000x4099 counts", *make_planes(torch, 1000, 4099, gen, dev), rand_counts(4099))
     compare("257x70", *make_planes(torch, 257, 70, gen, dev))
     compare("1024x15 (below one column tile)", *make_planes(torch, 1024, 15, gen, dev))
-    gate = wsum._FUSED_MAX_K
-    compare(f"{gate}x5000 counts (fused gate)", *make_planes(torch, gate, 5000, gen, dev),
-            rand_counts(5000))
-    above = make_planes(torch, gate + 1, 5000, gen, dev)
+    gate = wsum._SPLIT_ROUTE_K
+    at_gate = make_planes(torch, gate, 5000, gen, dev)
     c = rand_counts(5000)
-    compare(f"{gate + 1}x5000 counts (two passes)", *above, c)
-    same_bits(f"{gate + 1}x5000 counts (two passes)", lambda: wsum.wsum_dd(*above, c))
+    compare(f"{gate}x5000 counts (split-route gate)", *at_gate, c)
+    same_bits(f"{gate}x5000 counts (clusters of 8)", lambda: wsum.wsum_dd(*at_gate, c))
     S_pad = dd_to_f64(*wsum.wsum_dd(
-        torch.full((gate + 1, 33), 1.0e10, dtype=torch.float32, device=dev),
-        torch.zeros((gate + 1, 33), dtype=torch.float32, device=dev), *above[2:]))
+        torch.full((gate, 33), 1.0e10, dtype=torch.float32, device=dev),
+        torch.zeros((gate, 33), dtype=torch.float32, device=dev), *at_gate[2:]))
     if not bool((S_pad == 0).all()):
-        fail("an all-pad matrix gave S != 0 on the two-pass form")
+        fail("an all-pad matrix gave S != 0 with clusters of 8")
+    del at_gate
+    above = make_planes(torch, gate + 1, 5000, gen, dev)
+    before = wsum.WSUM_LAUNCHES
+    e = rel_err(dd_to_f64(*wsum.wsum_dd(*above)), dd_to_f64(*wsum.wsum_dd_plain(*above)))
+    checks.append(dict(kernel="wsum_dd", case=f"{gate + 1}x5000 (split route)", rel_err=e))
+    if wsum.WSUM_LAUNCHES != before or not e <= S_REL_TOL:
+        fail(f"{gate + 1} states: K1 launched or the split route is off by {e:.3e}")
     del above
+    wsum._SPLIT_ROUTE_K = 2**31
+    try:
+        top = make_planes(torch, 8192, 5000, gen, dev)
+        compare("8192x5000 counts (clusters of 16)", *top, rand_counts(5000))
+        del top
+        over = make_planes(torch, 8193, 64, gen, dev)
+        try:
+            wsum.wsum_dd(*over)
+        except RuntimeError:
+            checks.append(dict(kernel="wsum_dd", case="8193x64 raises", raised=True))
+        else:
+            fail("K1 took 8193 states, beyond its largest cluster")
+        del over
+    finally:
+        wsum._SPLIT_ROUTE_K = gate
     # the flagship's mesh shard (4 shards of 999,424 samples), with and
     # without counts
     shard = make_planes(torch, FLAGSHIP_K, FLAGSHIP_K * FLAGSHIP_NPK // 4, gen, dev)
@@ -630,7 +654,7 @@ def main():
         probe_checks.append(dict(kernel="wsum_pinned", K=K_p, tile=tile, steps=steps, rel_err=e))
         if not e <= S_REL_TOL:
             fail(f"wsum_pinned ({K_p}, {tile}, {steps}): vs plain {e:.3e} > {S_REL_TOL:g}")
-        if K_p in (1024, 4096):  # K8b's fused kernel and K8c's two passes
+        if K_p in (1024, 4096):  # K8b (clusters of 2) and K8c (clusters of 8)
             one, k1 = roofline.wsum_pinned(*tp, 1), wsum.wsum_dd(*tp)
             same = torch.equal(one[0], k1[0]) and torch.equal(one[1], k1[1])
             probe_checks.append(dict(kernel="wsum_pinned", K=K_p, case="one step vs K1",

@@ -15,20 +15,15 @@
 // pipes, or the FP64 instructions of one exp); the memory traffic is one
 // read and one write per chain.
 //
-// K8b/K8c: the kernels K1 runs at the probe's K, in their kPinned
-// instantiation, over a virtual N = tile x steps in which column n reads
-// column n & (tile - 1) of one resident tile pair (4 MB at (1024, 512),
-// 2 MB at (4096, 128)), so every plane read hits the 50 MB L2: the card's
-// form of the TPU's "HBM effectively free".  At (1024, 512) that is K1's
-// single-read cluster kernel (wsum_fused.cuh); at (4096, 128), above the
-// fused gate, K1's two passes (wsum_columns.cuh, then the row pass of
-// wsum_rows.cuh, whose per-column m_n and r_n scratch streams as in
-// production).  The result is exact: S = steps x S(tile), up to the order
-// of the f64 sums, and at one step it is K1's call bit for bit.
+// K8b/K8c: K1's own kernel (wsum_fused.cuh) in its kPinned instantiation,
+// over a virtual N = tile x steps in which column n reads column
+// n & (tile - 1) of one resident tile pair (4 MB at (1024, 512), clusters
+// of 2 blocks; 2 MB at (4096, 128), clusters of 8), so every plane read
+// hits the 50 MB L2: the card's form of the TPU's "HBM effectively free".
+// The result is exact: S = steps x S(tile), up to the order of the f64
+// sums, and at one step it is K1's call bit for bit.
 
-#include "wsum_columns.cuh"
 #include "wsum_fused.cuh"
-#include "wsum_rows.cuh"
 
 namespace {
 
@@ -118,36 +113,15 @@ extern "C" int exp_chain_launch(double* x, int64_t steps, int64_t n, void* strea
   return (int)cudaGetLastError();
 }
 
-// K1's two-pass form (column pass, row pass and finish) over the virtual
-// N = tile x steps of one (K, tile) pair (tile a power of two).  The caller
-// allocates m and r ((tile x steps,) float64), partial ((n_split, K)
-// float64) and the (K,) float32 outputs.
+// K1 over the virtual N = tile x steps of one (K, tile) pair (tile a power
+// of two); partial is (max_clusters, K) float64, as K1 takes it.
 extern "C" int wsum_pinned_launch(const float* uh, const float* ul, const float* gh,
                                   const float* gl, int K, int64_t tile, int64_t steps,
-                                  int n_split, double* m, double* r, double* partial,
-                                  float* s_hi, float* s_lo, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (K <= 0 || tile <= 0 || (tile & (tile - 1)) != 0 || steps <= 0 || n_split <= 0 ||
-      n_split > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int64_t N = tile * steps;
-  const int64_t col_blocks = (N + kColThreads - 1) / kColThreads;
-  if (col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  wsum_columns<true><<<(unsigned)col_blocks, kColThreads, 0, st>>>(uh, ul, gh, gl, nullptr, K, N,
-                                                                    tile, m, r);
-  return (int)launch_rows_and_finish<true>(uh, ul, gh, gl, m, r, K, N, n_split, partial, s_hi,
-                                           s_lo, st, tile);
-}
-
-// K1's fused form over the same virtual N; partial is (n_clusters, K)
-// float64 with n_clusters as K1 would take for N = tile x steps.
-extern "C" int wsum_pinned_fused_launch(const float* uh, const float* ul, const float* gh,
-                                        const float* gl, int K, int64_t tile, int64_t steps,
-                                        int n_clusters, double* partial, float* s_hi,
-                                        float* s_lo, void* stream) {
+                                  int max_clusters, double* partial, float* s_hi, float* s_lo,
+                                  void* stream) {
   if (K <= 0 || tile <= 0 || (tile & (tile - 1)) != 0 || steps <= 0)
     return (int)cudaErrorInvalidValue;
   return (int)launch_fused_and_finish<true>(uh, ul, gh, gl, nullptr, K, tile * steps,
-                                            n_clusters, partial, s_hi, s_lo,
+                                            max_clusters, partial, s_hi, s_lo,
                                             reinterpret_cast<cudaStream_t>(stream), tile);
 }

@@ -2,7 +2,7 @@
 // float32 planes of the preconditioned reduced potentials u_kn.
 //
 // Replaces the TPU kernel `_wsum_kernel` (pymbar_tpu/ops/pallas_kernels.py:584)
-// and, since it has no cap on K, also the role of `_wsum_big_kernel` (:476).
+// and, up to 8192 states, also the role of `_wsum_big_kernel` (:476).
 // Contract, as there: with a_kn = g_k - u_kn (g = f + ln N_k, both given as
 // dd pairs), m_n = max_k a_kn, T_kn = exp(a_kn - m_n), s_n = sum_k T_kn and
 // r_n = c_n / s_n (c = 1 when absent), S_k = sum_n T_kn r_n.  A column is
@@ -14,61 +14,34 @@
 // rebuilt as hi + lo in double and all arithmetic is plain f64, so FMA
 // contraction is harmless.
 //
-// Two forms, chosen by the caller (ops/wsum.py) from K:
-//   * up to the gate wsum._FUSED_MAX_K = 1024 (the kernel takes K <= 4096):
-//     the single-read kernel of wsum_fused.cuh, as the TPU kernel does it --
-//     each column tile read once by a thread-block cluster that shares its
-//     K rows, the shift m_n the float32 max of the hi words, one f64 exp
-//     per element kept in registers between the column sums and the row
-//     sums.  Its bound is one read of the planes (8 B/element, 2.44 ms at
-//     the 1024 x 999424 flagship); what holds it is its per-tile barriers
-//     and reductions (see wsum_fused.cuh).
-//   * above it: two passes.  wsum_columns (wsum_columns.cuh: one thread per
-//     column, an online max with a rescaled sum) writes m_n and r_n, then
-//     the shared row pass of wsum_rows.cuh recomputes T on its cp.async
-//     tiles.  Two reads (16 B/element) and two exps per element, yet at
-//     K = 2048 faster than clusters of 4 (profiling/torch_kernel_forms.py).
-// Both end in wsum_finish: per-block partials summed in a fixed order, no
-// atomics, the same bits on every run.
+// One form, the single-read kernel of wsum_fused.cuh, as the TPU kernel does
+// it: each column tile read once by a thread-block cluster that shares its K
+// rows (up to 16 blocks of 512 rows, so K <= 8192), the shift m_n the
+// float32 max of the hi words, one f64 exp per element kept in registers
+// between the column sums and the row sums.  Its bound is one read of the
+// planes (8 B/element, 2.44 ms at the 1024 x 999424 flagship); what holds it
+// is its per-tile barriers and reductions (see wsum_fused.cuh).  It ends in
+// wsum_finish: per-cluster partials summed in a fixed order, no atomics, the
+// same bits on every run.
 
-#include "wsum_columns.cuh"
 #include "wsum_fused.cuh"
-#include "wsum_rows.cuh"
 
-// Each launcher runs its kernels on `stream` and returns cudaGetLastError()
+// The launcher runs the kernels on `stream` and returns cudaGetLastError()
 // (or the error of the launch API; cudaErrorInvalidValue for a shape it
-// cannot take).  The caller allocates the (K,) float32 outputs and the
-// scratch; c may be null.
-
-// The fused form: partial is (n_clusters, K) float64, n_clusters between 1
-// and the number of 16-column tiles.
+// cannot take).  The caller allocates the (K,) float32 outputs and partial,
+// (max_clusters, K) float64; c may be null.
 extern "C" int wsum_fused_launch(const float* uh, const float* ul, const float* gh,
                                  const float* gl, const float* c, int K, int64_t N,
-                                 int n_clusters, double* partial, float* s_hi, float* s_lo,
+                                 int max_clusters, double* partial, float* s_hi, float* s_lo,
                                  void* stream) {
-  return (int)launch_fused_and_finish(uh, ul, gh, gl, c, K, N, n_clusters, partial, s_hi, s_lo,
-                                      reinterpret_cast<cudaStream_t>(stream));
+  return (int)launch_fused_and_finish(uh, ul, gh, gl, c, K, N, max_clusters, partial, s_hi,
+                                      s_lo, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The clusters of the fused form for K states that the current card holds
-// at once, in *out (0 when K exceeds the fused form).
+// The clusters of the kernel for K states that the current card holds at
+// once, in *out (0 when K exceeds the largest cluster).
 extern "C" int wsum_fused_clusters(int K, int* out) {
   const int C = fused_cluster_size(K);
   *out = C ? fused_max_clusters(C) : 0;
   return (int)cudaGetLastError();
-}
-
-// The two-pass form: m and r are (N,) float64, partial (n_split, K) float64.
-extern "C" int wsum_dd_launch(const float* uh, const float* ul, const float* gh,
-                              const float* gl, const float* c, int K, int64_t N,
-                              int n_split, double* m, double* r, double* partial,
-                              float* s_hi, float* s_lo, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (K <= 0 || N <= 0 || n_split <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t col_blocks = (N + kColThreads - 1) / kColThreads;
-  if (col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  wsum_columns<false><<<(unsigned)col_blocks, kColThreads, 0, st>>>(uh, ul, gh, gl, c, K, N, 0,
-                                                                     m, r);
-  return (int)launch_rows_and_finish(uh, ul, gh, gl, m, r, K, N, n_split, partial, s_hi, s_lo,
-                                     st);
 }

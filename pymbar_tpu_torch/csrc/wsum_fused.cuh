@@ -1,8 +1,9 @@
-// K1's single-read form, shared by wsum.cu (production) and roofline.cu
-// (the pinned probe K8b): S_k = sum_n T_kn r_n with T_kn = exp(a_kn - m_n),
-// m_n = max_k (g_hi_k - u_hi_kn) in float32, s_n = sum_k T_kn and
-// r_n = c_n / s_n (0 on a pad column, m_n < -1e8), from one read of both
-// f32 planes and one f64 exp per element.
+// K1, the kernel of every wsum_dd call that launches, shared by wsum.cu
+// (production) and roofline.cu (the pinned probes K8b and K8c):
+// S_k = sum_n T_kn r_n with T_kn = exp(a_kn - m_n), m_n = max_k
+// (g_hi_k - u_hi_kn) in float32, s_n = sum_k T_kn and r_n = c_n / s_n (0 on
+// a pad column, m_n < -1e8), from one read of both f32 planes and one f64
+// exp per element.
 //
 // What bounds it on the H100: one read is 8 B/element (8.2 GB at the
 // 1024 x 999424 flagship, 2.44 ms at 3.35 TB/s), but this kernel is held
@@ -12,15 +13,14 @@
 // Per 8192-element block tile it pays two cluster barriers with their
 // distributed-shared-memory reads, three block barriers, two 16-warp
 // reductions and one f64 division per column, on one 16-warp block per
-// SM at the 128-register cap (T and the row sums live in registers).  A
-// cluster of one block (K <= 512) streams the same bytes ~20% faster than
-// a cluster of two (profiling/torch_kernel_forms.py).  The two-pass form
-// it replaces read the planes twice and took two exps per element.
+// SM at the 128-register cap (T and the row sums live in registers).
+// Larger clusters pay more: each column's maxima and sums are read from
+// every block of the cluster, and fewer clusters fit the GPCs.
 //
 // Design (the TPU kernel keeps a (K, tile) block on chip between its two
 // reductions; one SM's 227 KB cannot hold 1024 rows of a useful tile, so a
 // thread-block cluster shares the rows):
-//   * A cluster of C = ceil(K / 512) blocks (C <= 8) takes column tiles of
+//   * A cluster of C = ceil(K / 512) blocks takes column tiles of
 //     kFusedCols = 16 columns, tiles q, q + n_clusters, ... for cluster q,
 //     so the resident clusters read neighbouring tiles together and each
 //     row is fetched as one contiguous span at a time.  Block `rank` holds
@@ -28,9 +28,13 @@
 //     columns x 8 B = 64 KB per stage, in a ring of kFusedStages = 3 stages
 //     filled by cp.async (16-byte copies).  512 rows per block keep the
 //     flagship's clusters at 2 blocks, which fill all 132 SMs where
-//     clusters of 4 fit on only 120.  The clusters are persistent: as many
-//     as are resident at once (the launcher asks the occupancy API), each
-//     writing one (K,) row of partial sums at the end.
+//     clusters of 4 fit on only 120.  C is at most 16, the H100's largest
+//     (non-portable) cluster, so K1 holds K <= 8192: every K wsum_dd sends
+//     it (up to wsum._SPLIT_ROUTE_K = 4096) and the 8192-state slice that
+//     checks the many-state route against K1.  The clusters are
+//     persistent: as many as are resident at once (the launcher asks the
+//     occupancy API), at most one per column tile, each writing one (K,)
+//     row of partial sums at the end.
 //   * 512 threads: lane l of warp w owns column l % 16 and rows
 //     32 w + 2 j + l / 16 (j = 0..15), so a warp reads 32 consecutive words
 //     of two adjacent rows (no bank conflicts).
@@ -73,7 +77,7 @@ constexpr int kFusedCols = 16;
 constexpr int kFusedLaneGroups = 32 / kFusedCols;  // rows a warp reads at once
 constexpr int kFusedRows = kFusedThreads / kFusedCols * kFusedRowsPerThread;  // 512
 constexpr int kFusedStages = 3;
-constexpr int kFusedMaxCluster = 8;
+constexpr int kFusedMaxCluster = 16;  // above 8 a non-portable cluster size
 constexpr int kFusedPlaneBytes = kFusedRows * kFusedCols * 4;   // 32 KB
 constexpr int kFusedStageBytes = 2 * kFusedPlaneBytes;          // 64 KB
 // ring, exp table, g (f64, f32), the per-warp column maxima and sums, and
@@ -236,7 +240,7 @@ wsum_fused(const float* __restrict__ uh, const float* __restrict__ ul,
     double sn = 0.0;
     for (int b = 0; b < C; ++b) sn += cluster.map_shared_rank(lsum, b)[par * kFusedCols + col];
     double rn = 0.0;
-    if (in && !(mf < kFusedPadShift)) {  // the pad rule of wsum_columns
+    if (in && !(mf < kFusedPadShift)) {  // the contract's pad rule
       rn = 1.0 / sn;
       if (c != nullptr) rn *= (double)c[n];
     }
@@ -271,8 +275,11 @@ inline int fused_cluster_size(int K) {
 
 template <bool kPinned, bool kVec>
 cudaError_t fused_config(int C, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const cudaError_t e = cudaFuncSetAttribute(
+  cudaError_t e = cudaFuncSetAttribute(
       wsum_fused<kPinned, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFusedSmemBytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(wsum_fused<kPinned, kVec>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(C);
@@ -313,20 +320,19 @@ cudaError_t launch_fused_as(const float* uh, const float* ul, const float* gh, c
   return cudaGetLastError();
 }
 
-// The fused kernel then wsum_finish on `st`: n_clusters persistent
-// clusters (1 <= n_clusters <= the column tiles), partial ((n_clusters, K)
-// float64) and the (K,) float32 outputs allocated by the caller; c may be
-// null; `tile` is read only by the pinned probe.
+// The fused kernel then wsum_finish on `st`: min(max_clusters, column
+// tiles) persistent clusters, partial ((max_clusters, K) float64) and the
+// (K,) float32 outputs allocated by the caller; c may be null; `tile` is
+// read only by the pinned probe.
 template <bool kPinned = false>
 cudaError_t launch_fused_and_finish(const float* uh, const float* ul, const float* gh,
                                     const float* gl, const float* c, int K, int64_t N,
-                                    int n_clusters, double* partial, float* s_hi, float* s_lo,
+                                    int max_clusters, double* partial, float* s_hi, float* s_lo,
                                     cudaStream_t st, int64_t tile = 0) {
   const int C = fused_cluster_size(K);
   const int64_t col_tiles = (N + kFusedCols - 1) / kFusedCols;
-  if (C == 0 || N <= 0 || n_clusters <= 0 || n_clusters > col_tiles ||
-      (int64_t)C * n_clusters > 2147483647LL)
-    return cudaErrorInvalidValue;
+  if (C == 0 || N <= 0 || max_clusters <= 0) return cudaErrorInvalidValue;
+  const int n_clusters = (int)(col_tiles < max_clusters ? col_tiles : max_clusters);
   const cudaError_t e =
       planes_vec_ok(uh, ul, kPinned ? tile : N)
           ? launch_fused_as<kPinned, true>(uh, ul, gh, gl, c, K, N, tile, C, n_clusters, partial,

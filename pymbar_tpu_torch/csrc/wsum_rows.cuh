@@ -1,15 +1,14 @@
-// The weight-sum row pass and its finish, shared by wsum.cu (K1's two-pass
-// form above the fused limit), wsum_split.cu (K4 wsum_denom_dd) and
-// lognum.cu (K7, K5's second half): given per-column f64 shifts m_n and
-// weights r_n, S_k = sum_n exp((g_k - u_kn) - m_n) r_n.
+// The weight-sum row pass and its finish, shared by wsum_split.cu (K4
+// wsum_denom_dd) and lognum.cu (K7, K5's second half): given per-column f64
+// shifts m_n and weights r_n, S_k = sum_n exp((g_k - u_kn) - m_n) r_n.  K1's
+// fused kernel (wsum_fused.cuh) takes its exp, its cp.async staging and its
+// finish from here.
 //
 // What bounds it on the H100: bytes.  Each element of both f32 planes is
 // read once (8 B) and costs one f64 exp (~21 FP64 FMA slots at the
 // measured 0.79e12 exps/s), so at the 8192 x 327680 slice the 21.5 GB take
 // 6.4 ms at 3.35 TB/s and the 2.7e9 exps ~3.4 ms: the memory system and the
-// FP64 pipe must both stay busy at once.  The previous form (blocks of 8
-// rows, one scalar 4-byte load per row and column started only after the
-// column's m_n and r_n came back) ran at ~37% of HBM bandwidth.
+// FP64 pipe must both stay busy at once.
 //
 // Design:
 //   exp_tab: the exp of every element, a table-driven branch-free f64 exp
@@ -36,10 +35,10 @@
 //   wsum_finish: sums the partials over the splits in a fixed order and
 //     splits S into hi/lo float32.  No atomics: the same bits on every run.
 //
-// kPinned = false is production; kPinned = true is the roofline probe of
-// roofline.cu, where virtual column n reads column n & (tile - 1) of one
-// (K, tile) pair (see wsum_columns.cuh).  The production instantiation
-// compiles the production index expression.
+// stage_planes<kPinned = true> serves the roofline probe of roofline.cu
+// (through wsum_fused.cuh), where virtual column n reads column
+// n & (tile - 1) of one (K, tile) pair; kPinned = false compiles the
+// production index expression.
 
 #pragma once
 
@@ -171,13 +170,12 @@ __device__ __forceinline__ void stage_planes(float* dst_hi, float* dst_lo,
   }
 }
 
-template <bool kPinned, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kRowThreads, 2)
 wsum_rows(const float* __restrict__ uh, const float* __restrict__ ul,
           const float* __restrict__ gh, const float* __restrict__ gl,
           const double* __restrict__ m, const double* __restrict__ r,
-          int K, int64_t N, int64_t cols_per_split, int64_t tile,
-          double* __restrict__ partial) {
+          int K, int64_t N, int64_t cols_per_split, double* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int k0 = blockIdx.x * kRowsPerBlock;
   const int rows = min(kRowsPerBlock, K - k0);
@@ -185,7 +183,6 @@ wsum_rows(const float* __restrict__ uh, const float* __restrict__ ul,
   const int64_t n0 = (int64_t)split * cols_per_split;
   const int64_t n1 = (n0 + cols_per_split < N) ? n0 + cols_per_split : N;
   const int ntiles = (n1 > n0) ? (int)((n1 - n0 + kRowTileCols - 1) / kRowTileCols) : 0;
-  const int64_t ld = kPinned ? tile : N;
   const int t = threadIdx.x;
   const int col = t % kRowTileCols;
   const int rg = t / kRowTileCols;  // the same for every lane of a warp
@@ -206,9 +203,9 @@ wsum_rows(const float* __restrict__ uh, const float* __restrict__ ul,
     if (i < ntiles) {
       unsigned char* base = smem + (i % kRowStages) * kRowStageBytes;
       const int64_t tn0 = n0 + (int64_t)i * kRowTileCols;
-      stage_planes<kPinned, kVec, kRowsPerBlock, kRowTileCols, kRowThreads>(
+      stage_planes<false, kVec, kRowsPerBlock, kRowTileCols, kRowThreads>(
           reinterpret_cast<float*>(base), reinterpret_cast<float*>(base + kRowPlaneBytes), uh,
-          ul, k0, rows, tn0, n1, ld, tile);
+          ul, k0, rows, tn0, n1, N, 0);
       if (t < kRowTileCols) {  // 64 chunks of m, then 64 of r
         const int which = t / (kRowTileCols / 2);
         const int ch = t % (kRowTileCols / 2);
@@ -291,50 +288,45 @@ inline bool planes_vec_ok(const float* uh, const float* ul, int64_t ld) {
          (reinterpret_cast<uintptr_t>(ul) & 15) == 0;
 }
 
-template <bool kPinned, bool kVec>
+template <bool kVec>
 cudaError_t launch_rows_as(const float* uh, const float* ul, const float* gh, const float* gl,
                            const double* m, const double* r, int K, int64_t N,
-                           int64_t cols_per_split, int n_split, int64_t tile, double* partial,
+                           int64_t cols_per_split, int n_split, double* partial,
                            cudaStream_t st) {
-  auto kernel = wsum_rows<kPinned, kVec>;
+  auto kernel = wsum_rows<kVec>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowSmemBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, n_split);
   kernel<<<grid, kRowThreads, kRowSmemBytes, st>>>(uh, ul, gh, gl, m, r, K, N, cols_per_split,
-                                                   tile, partial);
+                                                   partial);
   return cudaGetLastError();
 }
 
 // Launches wsum_rows on `st` over n_split column splits (each a whole
 // number of column tiles) into partial ((n_split, K) float64, allocated by
-// the caller); `tile` is read only by the pinned probe.  m and r must be
-// 16-byte aligned.
-template <bool kPinned = false>
-cudaError_t launch_rows(const float* uh, const float* ul, const float* gh, const float* gl,
-                        const double* m, const double* r, int K, int64_t N, int n_split,
-                        double* partial, cudaStream_t st, int64_t tile = 0) {
+// the caller).  m and r must be 16-byte aligned.
+inline cudaError_t launch_rows(const float* uh, const float* ul, const float* gh,
+                               const float* gl, const double* m, const double* r, int K,
+                               int64_t N, int n_split, double* partial, cudaStream_t st) {
   if (K <= 0 || N <= 0 || n_split <= 0 || n_split > 65535) return cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(r)) & 15) != 0)
     return cudaErrorInvalidValue;
   const int64_t col_tiles = (N + kRowTileCols - 1) / kRowTileCols;
   const int64_t cols_per_split = (col_tiles + n_split - 1) / n_split * kRowTileCols;
-  if (planes_vec_ok(uh, ul, kPinned ? tile : N))
-    return launch_rows_as<kPinned, true>(uh, ul, gh, gl, m, r, K, N, cols_per_split, n_split,
-                                         tile, partial, st);
-  return launch_rows_as<kPinned, false>(uh, ul, gh, gl, m, r, K, N, cols_per_split, n_split,
-                                        tile, partial, st);
+  if (planes_vec_ok(uh, ul, N))
+    return launch_rows_as<true>(uh, ul, gh, gl, m, r, K, N, cols_per_split, n_split, partial,
+                                st);
+  return launch_rows_as<false>(uh, ul, gh, gl, m, r, K, N, cols_per_split, n_split, partial, st);
 }
 
 // wsum_rows then wsum_finish on `st`; the (K,) float32 outputs allocated
 // by the caller.
-template <bool kPinned = false>
-cudaError_t launch_rows_and_finish(const float* uh, const float* ul, const float* gh,
-                                   const float* gl, const double* m, const double* r, int K,
-                                   int64_t N, int n_split, double* partial, float* s_hi,
-                                   float* s_lo, cudaStream_t st, int64_t tile = 0) {
-  const cudaError_t e = launch_rows<kPinned>(uh, ul, gh, gl, m, r, K, N, n_split, partial, st,
-                                             tile);
+inline cudaError_t launch_rows_and_finish(const float* uh, const float* ul, const float* gh,
+                                          const float* gl, const double* m, const double* r,
+                                          int K, int64_t N, int n_split, double* partial,
+                                          float* s_hi, float* s_lo, cudaStream_t st) {
+  const cudaError_t e = launch_rows(uh, ul, gh, gl, m, r, K, N, n_split, partial, st);
   if (e != cudaSuccess) return e;
   wsum_finish<<<(K + kFinishThreads - 1) / kFinishThreads, kFinishThreads, 0, st>>>(
       partial, K, n_split, s_hi, s_lo);

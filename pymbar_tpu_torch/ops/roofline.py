@@ -8,11 +8,10 @@ Counterparts of the JAX bench's Pallas probes (``bench.py``):
   :func:`exp_chain` runs x <- exp(-x) (one f64 exp per step) on
   register-resident values; :func:`measure_fma_peak` and
   :func:`measure_exp_rate` turn them into FLOP/s and exps/s.
-* K8b/K8c: :func:`wsum_pinned` runs the kernels K1 itself runs at that K
-  (the single-read cluster kernel up to ``wsum._FUSED_MAX_K`` states, else
-  the column and row passes), in their pinned instantiation, over a
-  virtual N = tile x steps in which column n reads column n mod tile of
-  one resident tile pair, so every plane read hits L2.  The result is
+* K8b/K8c: :func:`wsum_pinned` runs K1's own kernel (the single-read
+  cluster kernel) in its pinned instantiation, over a virtual N = tile x
+  steps in which column n reads column n mod tile of one resident tile
+  pair, so every plane read hits L2.  The result is
   exactly steps x S(tile), and at one step K1's call bit for bit.
   :func:`measure_wsum_ceiling` (1024, 512, 8192 steps) and
   :func:`measure_wsum_big_ceiling` (4096, 128, 16384 steps), the JAX
@@ -32,7 +31,7 @@ import torch
 from pymbar_tpu_torch.ops import _build, wsum
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
 from pymbar_tpu_torch.ops.wsum import wsum_dd_plain
-from pymbar_tpu_torch.ops.wsum_split import check_planes, row_splits
+from pymbar_tpu_torch.ops.wsum_split import check_planes
 
 __all__ = [
     "fma_chain",
@@ -95,8 +94,7 @@ def _lib():
         "fma_chain_f32_launch": [p, ctypes.c_float, i64, i64, p],
         "fma_chain_f64_launch": [p, ctypes.c_double, i64, i64, p],
         "exp_chain_launch": [p, i64, i64, p],
-        "wsum_pinned_launch": [p, p, p, p, i32, i64, i64, i32, p, p, p, p, p, p],
-        "wsum_pinned_fused_launch": [p, p, p, p, i32, i64, i64, i32, p, p, p, p],
+        "wsum_pinned_launch": [p, p, p, p, i32, i64, i64, i32, p, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -168,23 +166,12 @@ def wsum_pinned(u_hi, u_lo, g_hi, g_lo, steps):
         return wsum_pinned_plain(u_hi, u_lo, g_hi, g_lo, steps)
     if dev.type != "cuda":
         raise ValueError(f"wsum_pinned: no kernel for device {dev}")
-    N = tile * steps
     s_hi = torch.empty(K, dtype=torch.float32, device=dev)
     s_lo = torch.empty(K, dtype=torch.float32, device=dev)
-    planes = (u_hi.data_ptr(), u_lo.data_ptr(), g_hi.data_ptr(), g_lo.data_ptr(), K, tile,
-              int(steps))
-    if K <= wsum._FUSED_MAX_K and wsum.fused_cluster(K):
-        n_clusters = wsum.fused_partials(N, wsum.max_clusters(K, dev))
-        partial = torch.empty((n_clusters, K), dtype=torch.float64, device=dev)
-        _call("wsum_pinned_fused_launch", dev, *planes, n_clusters, partial.data_ptr(),
-              s_hi.data_ptr(), s_lo.data_ptr())
-    else:
-        n_split = row_splits(K, N)
-        m = torch.empty(N, dtype=torch.float64, device=dev)
-        r = torch.empty(N, dtype=torch.float64, device=dev)
-        partial = torch.empty((n_split, K), dtype=torch.float64, device=dev)
-        _call("wsum_pinned_launch", dev, *planes, n_split, m.data_ptr(), r.data_ptr(),
-              partial.data_ptr(), s_hi.data_ptr(), s_lo.data_ptr())
+    partial = wsum.fused_partial(K, dev)
+    _call("wsum_pinned_launch", dev, u_hi.data_ptr(), u_lo.data_ptr(), g_hi.data_ptr(),
+          g_lo.data_ptr(), K, tile, int(steps), partial.shape[0], partial.data_ptr(),
+          s_hi.data_ptr(), s_lo.data_ptr())
     PINNED_LAUNCHES += 1
     return s_hi, s_lo
 

@@ -6,11 +6,10 @@ with the same inputs, outputs and pad-column rule, minus the TPU knobs
 ``_SPLIT_ROUTE_K`` states it takes the many-state route through the split
 pair of :mod:`pymbar_tpu_torch.ops.wsum_split`, as the JAX package does.
 
-* CUDA tensors launch the hand-written Hopper kernels of ``csrc/wsum.cu``
-  (built by :mod:`pymbar_tpu_torch.ops._build` on first use): up to
-  ``_FUSED_MAX_K`` states the single-read cluster kernel
-  (``csrc/wsum_fused.cuh``), above it the column pass and the shared row
-  pass (``csrc/wsum_rows.cuh``).
+* CUDA tensors launch the hand-written Hopper kernel of ``csrc/wsum.cu``
+  (built by :mod:`pymbar_tpu_torch.ops._build` on first use): the
+  single-read cluster kernel of ``csrc/wsum_fused.cuh``, which holds up to
+  8192 states (clusters of at most 16 blocks of 512 rows).
 * CPU tensors run :func:`wsum_dd_plain`, the plain PyTorch version with
   true f64 inner math (the same as ``pallas_kernels.wsum_dd_ref``).
 
@@ -29,7 +28,6 @@ from pymbar_tpu_torch.ops.wsum_split import (
     check_planes,
     column_shift,
     denom_sums_dd,
-    row_splits,
     wsum_denom_dd,
 )
 
@@ -37,10 +35,7 @@ __all__ = [
     "wsum_dd",
     "wsum_dd_plain",
     "split_route",
-    "fused_cluster",
-    "fused_partials",
-    "fused_smem_bytes",
-    "max_clusters",
+    "fused_partial",
     "WSUM_LAUNCHES",
 ]
 
@@ -54,27 +49,12 @@ _PAD_M = -1.0e8
 # column_shift -> denom_sums_dd -> pad mask -> wsum_denom_dd, as the JAX
 # package does for padded K > 4096 (pallas_kernels.py:688-705).  The value
 # is the JAX package's, set by the TPU's VMEM (K1 there holds a whole
-# column tile of K rows); the H100's K1 has no K cap, and where the gate
-# belongs on this card is still to be measured (PERF.md).  Module constant
-# so tests can move it.
+# column tile of K rows); the H100's K1 holds up to 8192 states, and where
+# the gate belongs on this card is still to be measured (PERF.md).  Module
+# constant so tests can move it; above 8192 K1 raises.
 _SPLIT_ROUTE_K = 4096
 
-# The fused kernel (csrc/wsum_fused.cuh): blocks of _FUSED_THREADS threads
-# hold _FUSED_ROWS rows x _FUSED_COLS columns of both planes per stage, in
-# a ring of _FUSED_STAGES stages; a cluster of up to _FUSED_MAX_CLUSTER
-# blocks shares a column tile's rows (kFused* in the source).
-_FUSED_THREADS = 512
-_FUSED_ROWS = 512
-_FUSED_COLS = 16
-_FUSED_STAGES = 3
-_FUSED_MAX_CLUSTER = 8
-_EXP_TABLE_BYTES = 64 * 8
-# K1 takes the fused kernel up to this many states, the two-pass form
-# above: on the H100 the fused kernel wins at 512 and 1024 states and loses
-# at 2048 (clusters of 4) and above (profiling/torch_kernel_forms.py,
-# PERF.md).  Module constant so tests can move it.
-_FUSED_MAX_K = 1024
-
+# (card index, K) -> clusters of the fused kernel resident at once.
 _MAX_CLUSTERS = {}
 
 
@@ -102,34 +82,10 @@ def wsum_dd_plain(u_hi, u_lo, g_hi, g_lo, c=None):
     return dd_from_f64(S)
 
 
-def fused_cluster(K):
-    """Blocks per cluster of the fused kernel for K states (each block
-    holds at most _FUSED_ROWS rows); 0 when K is beyond the fused form."""
-    C = -(-K // _FUSED_ROWS)
-    return C if 0 < C <= _FUSED_MAX_CLUSTER else 0
-
-
-def fused_smem_bytes():
-    """Dynamic shared memory of one fused block (kFusedSmemBytes): the
-    stage ring, the exp table, g in f64 and f32, the per-warp column maxima
-    (f32) and sums (f64), and the double-buffered per-block maxima and
-    sums."""
-    warps = _FUSED_THREADS // 32
-    return (_FUSED_STAGES * 2 * _FUSED_ROWS * _FUSED_COLS * 4 + _EXP_TABLE_BYTES
-            + _FUSED_ROWS * (8 + 4) + warps * _FUSED_COLS * (4 + 8) + 2 * _FUSED_COLS * (4 + 8))
-
-
-def fused_partials(N, max_clusters):
-    """Persistent clusters of one fused call, and so rows of its partial
-    sums: as many as the card holds at once, at most one per column tile."""
-    return max(1, min(-(-N // _FUSED_COLS), max_clusters))
-
-
 def _lib():
     lib = _build.load("wsum")
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     signatures = {
-        "wsum_dd_launch": [p, p, p, p, p, i32, i64, i32, p, p, p, p, p, p],
         "wsum_fused_launch": [p, p, p, p, p, i32, i64, i32, p, p, p, p],
         "wsum_fused_clusters": [i32, ctypes.POINTER(ctypes.c_int)],
     }
@@ -141,19 +97,22 @@ def _lib():
     return lib
 
 
-def max_clusters(K, dev):
-    """Clusters of the fused kernel for K states that card ``dev`` holds at
-    once (the occupancy API's answer, cached per card and cluster size)."""
-    key = (dev.index, fused_cluster(K))
+def fused_partial(K, dev):
+    """The partial sums of one K1 call of K states on card ``dev``: an
+    uninitialised (clusters, K) float64 tensor, one row per cluster of the
+    fused kernel that the card holds at once (the occupancy API's answer,
+    cached per card and K).  Raises when no cluster holds K states."""
+    key = (dev.index, K)
     if key not in _MAX_CLUSTERS:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
             err = _lib().wsum_fused_clusters(K, ctypes.byref(out))
         if err != 0 or out.value <= 0:
             raise RuntimeError(
-                f"wsum_dd: no cluster of {key[1]} blocks fits on {dev} (CUDA error {err})")
+                f"wsum_dd: no cluster of the fused kernel holds {K} states on {dev} "
+                f"(at most 16 blocks of 512 rows; CUDA error {err})")
         _MAX_CLUSTERS[key] = out.value
-    return _MAX_CLUSTERS[key]
+    return torch.empty((_MAX_CLUSTERS[key], K), dtype=torch.float64, device=dev)
 
 
 def _launch(u_hi, u_lo, g_hi, g_lo, c):
@@ -162,23 +121,12 @@ def _launch(u_hi, u_lo, g_hi, g_lo, c):
     dev = u_hi.device
     s_hi = torch.empty(K, dtype=torch.float32, device=dev)
     s_lo = torch.empty(K, dtype=torch.float32, device=dev)
-    c_ptr = None if c is None else c.data_ptr()
-    planes = (u_hi.data_ptr(), u_lo.data_ptr(), g_hi.data_ptr(), g_lo.data_ptr(), c_ptr, K, N)
-    lib = _lib()
-    if K <= _FUSED_MAX_K and fused_cluster(K):
-        n_clusters = fused_partials(N, max_clusters(K, dev))
-        partial = torch.empty((n_clusters, K), dtype=torch.float64, device=dev)
-        fn, args = lib.wsum_fused_launch, (*planes, n_clusters, partial.data_ptr())
-    else:
-        n_split = row_splits(K, N)
-        m = torch.empty(N, dtype=torch.float64, device=dev)
-        r = torch.empty(N, dtype=torch.float64, device=dev)
-        partial = torch.empty((n_split, K), dtype=torch.float64, device=dev)
-        fn, args = lib.wsum_dd_launch, (*planes, n_split, m.data_ptr(), r.data_ptr(),
-                                        partial.data_ptr())
+    partial = fused_partial(K, dev)
     with torch.cuda.device(dev):
-        err = fn(*args, s_hi.data_ptr(), s_lo.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib().wsum_fused_launch(
+            u_hi.data_ptr(), u_lo.data_ptr(), g_hi.data_ptr(), g_lo.data_ptr(),
+            None if c is None else c.data_ptr(), K, N, partial.shape[0], partial.data_ptr(),
+            s_hi.data_ptr(), s_lo.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wsum_dd: kernel launch failed with CUDA error {err}")
     WSUM_LAUNCHES += 1
@@ -198,7 +146,7 @@ def split_route(u_hi, u_lo, g_hi, g_lo, c=None):
 
 
 def wsum_dd(u_hi, u_lo, g_hi, g_lo, c=None):
-    """S_k = sum_n c_n N_k W_nk in (hi, lo) float32, one pass pair over u.
+    """S_k = sum_n c_n N_k W_nk in (hi, lo) float32, one read of u.
 
     u_hi/u_lo: (K, N) float32 dd planes of the (preconditioned) reduced
     potentials; g_hi/g_lo: (K,) float32 dd planes of f_k + ln N_k; c:

@@ -36,7 +36,6 @@ __all__ = [
     "wsum_denom_dd_plain",
     "check_planes",
     "row_splits",
-    "row_smem_bytes",
     "SHIFT_LAUNCHES",
     "DENOM_SUMS_LAUNCHES",
     "WSUM_DENOM_LAUNCHES",
@@ -52,15 +51,12 @@ WSUM_DENOM_LAUNCHES = 0
 _COL_THREADS = 256
 _TARGET_BLOCKS = 2048
 _MIN_ROWS = 256
-# The row pass (csrc/wsum_rows.cuh): blocks over _ROWS_PER_BLOCK rows walk
-# column tiles of _ROW_TILE_COLS columns staged in a ring of _ROW_STAGES
-# stages (kRow* in the source), two blocks per SM.  Its grid is cut into
+# The row pass (csrc/wsum_rows.cuh): blocks over _ROWS_PER_BLOCK rows
+# (kRowsPerBlock in the source), two blocks per SM.  Its grid is cut into
 # column splits until it holds ~_ROW_TARGET_BLOCKS blocks (8 per SM on 132
 # SMs: four waves of two), each split at least _MIN_COLS_PER_SPLIT columns
 # wide (8 tiles) so the ring's start-up cost is spread.
 _ROWS_PER_BLOCK = 32
-_ROW_TILE_COLS = 128
-_ROW_STAGES = 3
 _ROW_TARGET_BLOCKS = 1056
 _MIN_COLS_PER_SPLIT = 1024
 _MAX_GRID_Y = 65535
@@ -184,21 +180,13 @@ def _call(fn_name, dev, *args):
 
 
 def row_splits(K, N):
-    """Column splits of the shared row pass (K4, K7, K5, K1's two-pass
-    form): ~_ROW_TARGET_BLOCKS blocks of _ROWS_PER_BLOCK rows, each split
+    """Column splits of the shared row pass (K4, K7, K5's second half):
+    ~_ROW_TARGET_BLOCKS blocks of _ROWS_PER_BLOCK rows, each split
     at least _MIN_COLS_PER_SPLIT columns wide.  The kernel rounds each
     split up to whole column tiles."""
     k_tiles = -(-K // _ROWS_PER_BLOCK)
     return max(1, min(-(-_ROW_TARGET_BLOCKS // k_tiles), -(-N // _MIN_COLS_PER_SPLIT),
                       _MAX_GRID_Y))
-
-
-def row_smem_bytes():
-    """Dynamic shared memory of one row-pass block (kRowSmemBytes): per
-    stage both planes' tiles and the tile's f64 m_n and r_n, then the
-    64-entry f64 table of the exp."""
-    return (_ROW_STAGES * (2 * _ROWS_PER_BLOCK * _ROW_TILE_COLS * 4 + 2 * _ROW_TILE_COLS * 8)
-            + 64 * 8)
 
 
 def column_shift(u_hi, g_hi):

@@ -76,7 +76,7 @@ def test_wsum_pinned_matches_plain(dev, K, tile, steps):
 @pytest.mark.parametrize("K,tile", [(1024, 512), (4096, 128)])
 def test_one_step_is_the_production_kernel(dev, K, tile):
     """steps = 1 runs K1's own kernel on the tile, as K1 does: the same
-    bits (the fused form at K = 1024, the two passes at K = 4096)."""
+    bits (clusters of 2 blocks at K = 1024, of 8 at K = 4096)."""
     planes = tr.pinned_tile(K, tile, dev, seed=7)
     S1 = tr.wsum_pinned(*planes, 1)
     S = tw.wsum_dd(*planes)

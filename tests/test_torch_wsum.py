@@ -6,6 +6,9 @@ version; the CUDA kernel itself is held against that version on the card
 planes made with numpy from a seed and handed to both packages.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +45,14 @@ def _jax_S(fn, uh, ul, gh, gl, c=None, **kw):
 
 
 @pytest.mark.parametrize(
-    "K,N,counts", [(32, 1000, False), (32, 1000, True), (5, 37, False), (1, 64, False)]
+    "K,N,counts",
+    [(32, 1000, False), (32, 1000, True), (5, 37, False), (1, 64, False),
+     # either side of the card kernel's cluster sizes (512 rows a block),
+     # where the card tests hold the kernel against this plain version
+     (512, 40, False), (513, 40, True), (1000, 31, True), (1024, 16, False), (1025, 33, True),
+     (2048, 12, True), (2500, 9, False), (3000, 7, True), (4096, 9, True),
+     # above the split-route gate: the plain many-state route
+     (4097, 9, False)],
 )
 def test_plain_matches_jax_f64_reference(K, N, counts):
     """Both sides compute in true f64 inside, so 1e-13 relative holds."""
@@ -126,6 +136,12 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
         ("c_length", ValueError),
         ("non_contiguous", ValueError),
         ("meta_device", ValueError),
+        ("f64_counts", TypeError),
+        ("g_lo_length", ValueError),
+        ("empty_planes", ValueError),
+        ("one_d_planes", ValueError),
+        ("counts_on_another_device", ValueError),
+        ("non_contiguous_g", ValueError),
     ],
 )
 def test_wrapper_rejects_what_it_cannot_take(bad, error):
@@ -147,39 +163,45 @@ def test_wrapper_rejects_what_it_cannot_take(bad, error):
         args["u_hi"] = uh.T.contiguous().T
     elif bad == "meta_device":
         args = {k: (None if v is None else v.to("meta")) for k, v in args.items()}
+    elif bad == "f64_counts":
+        args["c"] = c.double()
+    elif bad == "g_lo_length":
+        args["g_lo"] = gl[:3]
+    elif bad == "empty_planes":
+        args["u_hi"], args["u_lo"] = uh[:, :0].contiguous(), ul[:, :0].contiguous()
+    elif bad == "one_d_planes":
+        args["u_hi"], args["u_lo"] = uh[0].contiguous(), ul[0].contiguous()
+    elif bad == "counts_on_another_device":
+        args["c"] = c.to("meta")
+    elif bad == "non_contiguous_g":
+        args["g_hi"] = torch.stack([gh, gh], 1)[:, 0]
     with pytest.raises(error):
         tw.wsum_dd(**args)
 
 
-# The fused kernel's plan (csrc/wsum_fused.cuh), mirrored in Python: the
-# card's shared memory per block (227 KB) and the cluster limit bound it.
-_SMEM_PER_BLOCK = 232448
+_CSRC = Path(tw.__file__).parent.parent / "csrc"
 
 
-@pytest.mark.parametrize(
-    "K,cluster", [(1, 1), (3, 1), (512, 1), (513, 2), (1000, 2), (1024, 2), (1025, 3),
-                  (4096, 8), (4097, 0)]
-)
-def test_fused_cluster_size(K, cluster):
-    """ceil(K / 512) blocks of at most 512 rows, at most 8 (the portable
-    cluster); 0 above that, where K1 takes its two-pass form."""
-    assert tw.fused_cluster(K) == cluster
+def _constexprs(*headers):
+    """The integer constexprs of csrc headers, evaluated in order from the
+    source (``/`` of the source is integer division on these positive
+    values)."""
+    env = {}
+    for name in headers:
+        src = re.sub(r"//[^\n]*", "", (_CSRC / name).read_text())
+        for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+            env[key] = eval(f"({expr})".replace("/", "//"), {}, env)
+    return env
 
 
 def test_fused_plan_fits_the_card():
-    assert tw.fused_smem_bytes() <= _SMEM_PER_BLOCK
-    # the gate never sends a K the fused kernel cannot hold
-    assert 0 < tw._FUSED_MAX_K <= tw._FUSED_ROWS * tw._FUSED_MAX_CLUSTER
-    assert tw._FUSED_MAX_K <= tw._SPLIT_ROUTE_K
-
-
-@pytest.mark.parametrize(
-    "N,max_clusters,expected", [(999424, 66, 66), (999424, 30, 30), (31, 66, 2), (1, 66, 1),
-                                (16, 66, 1), (17, 66, 2), (1000, 0, 1)]
-)
-def test_fused_partials(N, max_clusters, expected):
-    """One cluster per resident slot, never more than the column tiles."""
-    assert tw.fused_partials(N, max_clusters) == expected
+    """K1's block (csrc/wsum_fused.cuh, read from the source) within the
+    H100's 227 KB of shared memory per block, and its largest cluster
+    holds every K wsum_dd sends it and the 8192-state slice."""
+    c = _constexprs("wsum_rows.cuh", "wsum_fused.cuh")
+    assert c["kFusedSmemBytes"] <= 232448
+    assert c["kFusedRows"] * c["kFusedMaxCluster"] >= max(tw._SPLIT_ROUTE_K, 8192)
+    assert c["kFusedMaxCluster"] <= 16  # the H100's largest cluster
 
 
 def _exp_tab(x, consts):
@@ -212,10 +234,7 @@ def test_exp_tab_algorithm_within_an_ulp():
     """The kernels' branch-free exp (its constants read from the source)
     within an ulp of exp over the range the weight sums meet, 0 below
     underflow and inf above overflow, as exp."""
-    import re
-    from pathlib import Path
-
-    src = (Path(tw.__file__).parent.parent / "csrc" / "wsum_rows.cuh").read_text()
+    src = (_CSRC / "wsum_rows.cuh").read_text()
     consts = {name: float(re.search(rf"{name} = ([0-9.e+-]+);", src).group(1))
               for name in ("kInvLn2x64", "kLn2d64Hi", "kLn2d64Lo")}
     rng = np.random.default_rng(7)

@@ -39,7 +39,8 @@ def _planes(K, N, seed, dev):
      # K not a multiple of the cluster or of 256 rows; N not a multiple of
      # the column tile nor of 4 (the 4-byte copies)
      (1000, 4099, True), (257, 70, False),
-     # N below one column tile; the fused limit and one above (two passes)
+     # N below one column tile; clusters of 2 and 3 blocks either side of
+     # 1024 states, and of 8 just below the split-route gate
      (1024, 31, False), (1025, 5000, True), (4095, 130, False),
      # the flagship's mesh shard (4 shards of 999,424 samples)
      (1024, 249856, False), (1024, 249856, True)],
@@ -70,18 +71,33 @@ def test_kernel_pad_columns(dev):
 
 @pytest.mark.parametrize("K,N", [(1024, 65536), (4096, 8192)])
 def test_kernel_gives_the_same_bits_twice(dev, K, N):
-    """No atomics: the fused and the two-pass forms are deterministic."""
+    """No atomics: clusters of 2 and of 8 blocks are deterministic."""
     uh, ul, gh, gl, c = _planes(K, N, 3, dev)
     a = tw.wsum_dd(uh, ul, gh, gl, c)
     b = tw.wsum_dd(uh, ul, gh, gl, c)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("K", [2500, 4096])
+@pytest.mark.parametrize("K", [2500, 4096, 8192])
 def test_fused_form_up_to_its_cluster_limit(dev, monkeypatch, K):
-    """Clusters of 5 and 8 blocks, past the gate's K."""
-    monkeypatch.setattr(tw, "_FUSED_MAX_K", 4096)
+    """Clusters of 5, 8 and 16 blocks (16: the non-portable size), K1 run
+    past the split-route gate as the many-state checks run it."""
+    monkeypatch.setattr(tw, "_SPLIT_ROUTE_K", 2**31)
     uh, ul, gh, gl, c = _planes(K, 20000, K, dev)
+    before = tw.WSUM_LAUNCHES
     S = dd_to_f64(*tw.wsum_dd(uh, ul, gh, gl, c))
+    torch.cuda.synchronize()
+    assert tw.WSUM_LAUNCHES == before + 1
     S_ref = dd_to_f64(*tw.wsum_dd_plain(uh, ul, gh, gl, c))
     assert float(((S - S_ref).abs() / S_ref.abs()).max()) <= 1e-13
+
+
+def test_k1_raises_beyond_its_largest_cluster(dev, monkeypatch):
+    """8193 states need 17 blocks of 512 rows: K1 raises, nothing falls
+    back."""
+    monkeypatch.setattr(tw, "_SPLIT_ROUTE_K", 2**31)
+    uh, ul, gh, gl, _ = _planes(8193, 64, 5, dev)
+    before = tw.WSUM_LAUNCHES
+    with pytest.raises(RuntimeError):
+        tw.wsum_dd(uh, ul, gh, gl)
+    assert tw.WSUM_LAUNCHES == before

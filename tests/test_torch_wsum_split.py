@@ -11,6 +11,9 @@ at ~1.4e-11 relative on XLA:CPU, docs/numerics.md:41-44), 1e-10 in f for
 whole dd solves (the dd noise floor is ~1e-12).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -270,6 +273,13 @@ def test_row_splits(K, N, splits):
 
 
 def test_row_pass_plan_fits_two_blocks_per_sm():
-    """Two blocks of the row pass share an SM's 228 KB (1 KB reserved per
-    block)."""
-    assert 2 * (tsplit.row_smem_bytes() + 1024) <= 233472
+    """Two blocks of the row pass (csrc/wsum_rows.cuh, read from the
+    source) share an SM's 228 KB (1 KB reserved per block), and row_splits
+    plans with the kernel's rows per block."""
+    src = (Path(tsplit.__file__).parent.parent / "csrc" / "wsum_rows.cuh").read_text()
+    c = {}
+    for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", re.sub(r"//[^\n]*", "", src),
+                                re.M):
+        c[key] = eval(f"({expr})".replace("/", "//"), {}, c)
+    assert 2 * (c["kRowSmemBytes"] + 1024) <= 233472
+    assert c["kRowsPerBlock"] == tsplit._ROWS_PER_BLOCK
