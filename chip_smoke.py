@@ -87,6 +87,22 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    replicates within 5e-11 of the batched ones, with one K1 launch per
    polish iteration.  Reps/s at both tolerances, the phase walls, the fast
    and exact iterations and the peak memory.
+6. The diagnostics and the host estimators at the flagship, on phase 5's
+   u_kn (phase 2's seed), each check on its own line with its wall and the
+   peak device memory: MBAR(u_kn, N_k, initialize="BAR") (f_k within 1e-10
+   of phase 2's; the BAR chain's wall alone; every pair's gathered work
+   values equal, bit for bit, to rows of u_kn indexed per pair as the JAX
+   package does, the chain within 1e-12 of BAR chained on those, and within
+   6 accumulated pairwise BAR sigmas of the solved f_k); Log_W_nk (N, K) passing
+   check_w_normalized on the card; compute_effective_sample_number (N_k <=
+   N_eff <= N to 1e-9 relative, and 1 / sum_n W_nk^2 from Log_W_nk to 1e-10
+   relative); compute_overlap (rows sum to 1 and the top eigenvalue is 1,
+   within 1e-10; the scalar in [0, 1]); the free energies with
+   uncertainty_method="svd" (W factored on the card) equal to "svd-ew" to 8
+   decimals; bar and exp on the state-0/state-1 work values (Delta_f within
+   6 sigma of MBAR's and of the analytic value); statistical_inefficiency
+   and subsample_correlated_data on correlated_timeseries_example at its
+   published length (g within 50% of its analytic value, one sample per g).
 
 Then the card, the kernels line and {"ok": true, "device": {...}} close the
 output.  Without a CUDA card, or without the repository beside this file,
@@ -253,12 +269,13 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch import MBAR, bar, exp, testsystems, timeseries
     from pymbar_tpu_torch.mbar import bootstrap_counts
     from pymbar_tpu_torch.ops import _build, lognum, roofline, wsum, wsum_split
     from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
     from pymbar_tpu_torch.parallel import sharding
     from pymbar_tpu_torch.ops.mbar_core import mbar_gradient, mbar_gram_normalization
+    from pymbar_tpu_torch.utils import check_w_normalized
     from pymbar_tpu_torch.solvers_large import (
         bootstrap_polish_dd,
         dev_split_planes,
@@ -1056,7 +1073,139 @@ def main():
     if serial_launches != int(bis["polish_iterations"].sum()) or serial_launches <= 0:
         fail(f"serial mode launched K1 {serial_launches} times for "
              f"{bis['polish_iterations'].tolist()} polish iterations")
-    del uh, ul, u_kn, mbar, res, counts, direct, fb12, fb7, fs
+    del uh, ul, mbar, res, counts, direct, fb12, fb7, fs
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the diagnostics and the host estimators at the flagship
+    def timed(fn):
+        """(result, wall, peak device bytes) of fn, fenced by synchronize."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    mbar, init_s, peak = timed(lambda: MBAR(u_kn, N_k, initialize="BAR"))
+    f_bar, chain_s, _ = timed(lambda: mbar._initialize_with_bar(mbar.u_kn))
+    df_bar = float(np.abs(mbar.f_k - f_flag).max())
+
+    def per_pair_chain():
+        """The chain in the JAX package's per-pair form: each pair's work
+        values from rows of the same card tensor indexed by x_kindices
+        masks, held bit for bit against the chain's one gather, and BAR on
+        them with its uncertainty (f_ref, the accumulated variance)."""
+        pairs, works = mbar._bar_pair_work(mbar.u_kn)
+        xk = torch.as_tensor(mbar.x_kindices, device=dev)
+        u = mbar.u_kn
+        f_ref, var, mismatched = np.zeros(FLAGSHIP_K), np.zeros(FLAGSHIP_K), 0
+        for (k, l), (w_F, w_R) in zip(pairs, works):
+            mk, ml = xk == k, xk == l
+            ref_F = (u[l, mk] - u[k, mk]).cpu().numpy()
+            ref_R = (u[k, ml] - u[l, ml]).cpu().numpy()
+            mismatched += not (np.array_equal(w_F, ref_F) and np.array_equal(w_R, ref_R))
+            r = bar(ref_F, ref_R, method="bisection", relative_tolerance=0.00001,
+                    verbose=False, maximum_iterations=100)
+            f_ref[l] = f_ref[k] + r["Delta_f"]
+            var[l] = var[k] + r["dDelta_f"] ** 2
+        return len(pairs), mismatched, f_ref, var
+
+    (n_pairs, mismatched, f_ref, var), ref_s, _ = timed(per_pair_chain)
+    chain_vs_ref = float(np.abs(f_bar - f_ref).max())
+    # The chain adds one pairwise BAR estimate per step, so its distance
+    # from the solved f_k is held to 6 of the sigmas accumulated so far.
+    chain_z = np.abs((f_bar - f_bar[0]) - mbar.f_k)[1:] / np.sqrt(var[1:])
+    emit("6_bar_init", s=init_s, bar_chain_s=chain_s, max_memory_allocated=peak,
+         route=mesh_route(mbar)[0], delta_f_max_err_vs_phase2=df_bar,
+         per_pair_reference_s=ref_s, pairs=n_pairs, pairs_with_other_work_values=mismatched,
+         chain_max_abs_dev_vs_per_pair=chain_vs_ref,
+         chain_max_abs_dev_from_solution=float(np.abs((f_bar - f_bar[0]) - mbar.f_k).max()),
+         chain_max_z_from_solution=float(chain_z.max()))
+    if not df_bar <= 1.0e-10:
+        fail(f"MBAR(initialize='BAR') f_k differs from phase 2's by {df_bar:.3e}")
+    if n_pairs != FLAGSHIP_K - 1 or mismatched:
+        fail(f"BAR chain: {mismatched} of {n_pairs} pairs gathered other work values "
+             "than the per-pair form")
+    if not chain_vs_ref <= 1.0e-12:
+        fail(f"BAR chain differs from the per-pair chain by {chain_vs_ref:.3e}")
+    if not chain_z.max() < 6:
+        fail(f"BAR chain strays {chain_z.max():.3g} accumulated sigmas from the solved f_k")
+
+    log_w, s, peak = timed(lambda: mbar.Log_W_nk)
+    W = torch.as_tensor(log_w, device=dev).exp_()
+    _, check_s, _ = timed(lambda: check_w_normalized(W, N_k))
+    col_dev = float((W.sum(dim=0) - 1.0).abs().max())
+    row_dev = float((W @ torch.as_tensor(N_k, dtype=W.dtype, device=dev) - 1.0).abs().max())
+    emit("6_log_w_nk", s=s, check_w_normalized_s=check_s, max_memory_allocated=peak,
+         shape=list(log_w.shape), colsum_max_dev=col_dev, rowsum_max_dev=row_dev)
+    if log_w.shape != (N_flag, FLAGSHIP_K) or not np.isfinite(log_w).all():
+        fail(f"Log_W_nk has shape {log_w.shape} or a value that is not finite")
+
+    n_eff, s, peak = timed(mbar.compute_effective_sample_number)
+    n_eff_w = 1.0 / (torch.linalg.vector_norm(W, dim=0) ** 2).cpu().numpy()
+    del W
+    torch.cuda.empty_cache()
+    Nk = np.asarray(N_k, dtype=np.float64)
+    eff_dev = float(np.abs(n_eff / n_eff_w - 1.0).max())
+    emit("6_n_eff", s=s, max_memory_allocated=peak, min=float(n_eff.min()),
+         max=float(n_eff.max()), rel_dev_vs_log_w_nk=eff_dev)
+    if not (np.all(n_eff >= Nk * (1 - 1e-9)) and np.all(n_eff <= N_flag * (1 + 1e-9))):
+        fail(f"N_eff outside [N_k, N]: min {n_eff.min():.6g}, max {n_eff.max():.6g}")
+    if not eff_dev <= 1.0e-10:
+        fail(f"N_eff differs from 1 / sum_n W_nk^2 by {eff_dev:.3e} relative")
+
+    ov, s, peak = timed(mbar.compute_overlap)
+    row_err = float(np.abs(ov["matrix"].sum(axis=1) - 1.0).max())
+    top_err = abs(float(ov["eigenvalues"][0]) - 1.0)
+    emit("6_overlap", s=s, max_memory_allocated=peak, scalar=float(ov["scalar"]),
+         rowsum_max_dev=row_err, top_eigenvalue_dev=top_err)
+    if not (row_err <= 1.0e-10 and top_err <= 1.0e-10 and 0.0 <= ov["scalar"] <= 1.0):
+        fail(f"overlap: row sums off by {row_err:.3e}, top eigenvalue by {top_err:.3e}, "
+             f"scalar {ov['scalar']}")
+
+    res_svd, svd_s, svd_peak = timed(
+        lambda: mbar.compute_free_energy_differences(uncertainty_method="svd"))
+    res_ew, ew_s, _ = timed(
+        lambda: mbar.compute_free_energy_differences(uncertainty_method="svd-ew"))
+    svd_dev = float(np.abs(res_svd["dDelta_f"] - res_ew["dDelta_f"]).max())
+    emit("6_svd", s=svd_s, svd_ew_s=ew_s, max_memory_allocated=svd_peak,
+         ddelta_f_max_abs_diff_vs_svd_ew=svd_dev, max_abs_z=max_abs_z(res_svd, fa))
+    np.testing.assert_almost_equal(res_svd["Delta_f"], res_ew["Delta_f"], decimal=8)
+    np.testing.assert_almost_equal(res_svd["dDelta_f"], res_ew["dDelta_f"], decimal=8)
+
+    def estimators():
+        n0, n1 = N_k[0], N_k[0] + N_k[1]
+        w_F = (u_kn[1, :n0] - u_kn[0, :n0]).cpu().numpy()
+        w_R = (u_kn[0, n0:n1] - u_kn[1, n0:n1]).cpu().numpy()
+        return bar(w_F, w_R), exp(w_F)
+
+    (r_bar, r_exp), s, peak = timed(estimators)
+    df_mbar = float(mbar.f_k[1] - mbar.f_k[0])
+    est = {name: dict(delta_f=float(r["Delta_f"]), sigma=float(r["dDelta_f"]),
+                      z_vs_mbar=(float(r["Delta_f"]) - df_mbar) / float(r["dDelta_f"]),
+                      z_vs_analytic=(float(r["Delta_f"]) - float(fa[1])) / float(r["dDelta_f"]))
+           for name, r in (("bar", r_bar), ("exp", r_exp))}
+    emit("6_bar_exp", s=s, max_memory_allocated=peak, mbar_delta_f_01=df_mbar,
+         analytic_delta_f_01=float(fa[1]), **est)
+    for name, e in est.items():
+        if not (abs(e["z_vs_mbar"]) < 6 and abs(e["z_vs_analytic"]) < 6):
+            fail(f"{name}: Delta_f off by more than 6 sigma: {e}")
+
+    def decorrelate():
+        A_t = testsystems.correlated_timeseries_example(seed=SEED)
+        return A_t, timeseries.statistical_inefficiency(A_t), timeseries.subsample_correlated_data(A_t)
+
+    (A_t, g, idx), s, peak = timed(decorrelate)
+    rho = np.exp(-1.0 / 5.0)  # the example's published tau = 5
+    g_true = (1.0 + rho) / (1.0 - rho)
+    emit("6_timeseries", s=s, max_memory_allocated=peak, N=int(A_t.size), g=g, g_analytic=g_true,
+         n_subsampled=len(idx))
+    if not (A_t.size == 10000 and abs(g / g_true - 1.0) < 0.5):
+        fail(f"statistical inefficiency {g:.4g} against the analytic {g_true:.4g}")
+    if not (idx[0] == 0 and np.all(np.diff(idx) > 0) and idx[-1] < A_t.size
+            and abs(len(idx) - A_t.size / g) <= 1.0):
+        fail(f"subsample_correlated_data gave {len(idx)} indices for g = {g:.4g}")
+    del u_kn, mbar, log_w, res_svd, res_ew
     torch.cuda.empty_cache()
 
     # ---- the kernels line: launches from each one's main-path run

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port, on one CUDA card.
 
-    python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap]
+    python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap] [diagnostics]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -38,6 +38,15 @@ counts, ``bootstrap_polish_dd`` at tol 1e-12 and 1e-7 in turns (walls,
 reps/s, phase walls, iterations), the exact phase alone from the base
 point (the same replicates without the float32 fast phase), and one
 profiler trace of ``bootstrap_polish_dd`` at 1e-12.
+
+``diagnostics`` wraps the flagship's solution in ``MBAR.from_solution`` and
+times, three times each after one warm-up: the BAR chain
+(``_initialize_with_bar``), ``Log_W_nk`` on the card alone and with its
+copy to the host, ``compute_effective_sample_number``, ``compute_overlap``
+and the 'svd' Theta with its steps (W on the card, ``check_w_normalized``,
+``MBAR._svd_sigma_v``: the QR of W and the SVD of R); then
+``torch.linalg.svd`` of W once, the direct factorization the QR route
+stands in for.
 """
 
 import json
@@ -306,12 +315,58 @@ def profile_bootstrap(torch, card):
     torch.cuda.empty_cache()
 
 
+def profile_diagnostics(torch, card):
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.ops.mbar_core import mbar_log_W_nk
+    from pymbar_tpu_torch.utils import check_w_normalized
+
+    K, npk, _ = CONFIGS["flagship"]
+    u, N_k = oscillators(torch, K, npk, "cuda")
+    m = MBAR.from_solution(u, N_k, MBAR(u, N_k).f_k)
+    state = {}
+
+    def w_on_card():
+        state["W"] = m._W_nk_tensor()
+
+    steps = {
+        "bar_chain_s": lambda: m._initialize_with_bar(u),
+        "log_w_nk_card_s": lambda: mbar_log_W_nk(u, N_k, m.f_k),
+        "log_w_nk_to_host_s": lambda: mbar_log_W_nk(u, N_k, m.f_k).cpu().numpy(),
+        "n_eff_s": m.compute_effective_sample_number,
+        "overlap_s": m.compute_overlap,
+        "theta_svd_s": lambda: m._compute_theta_streamed("svd"),
+        "theta_svd_ew_s": lambda: m._compute_theta_streamed("svd-ew"),
+        "svd_w_on_card_s": w_on_card,
+        "svd_check_w_normalized_s": lambda: check_w_normalized(state["W"], N_k),
+        "svd_sigma_v_s": lambda: m._svd_sigma_v(state["W"]),
+    }
+    walls = {name: [] for name in steps}
+    peak = {}
+    for rep in range(4):
+        for name, fn in steps.items():
+            torch.cuda.reset_peak_memory_stats()
+            wall = timed(torch, fn)[0]
+            peak[name] = torch.cuda.max_memory_allocated()
+            if rep:
+                walls[name].append(wall)
+    print(json.dumps(dict(config="diagnostics", card=card, K=K, N=K * npk, walls=walls,
+                          max_memory_allocated=peak)), flush=True)
+    torch.cuda.empty_cache()
+    direct_s, (_U, S, _Vh) = timed(torch, lambda: torch.linalg.svd(state["W"], full_matrices=False))
+    R_S = m._svd_sigma_v(state["W"])[0]
+    print(json.dumps(dict(config="diagnostics", card=card, direct_svd_s=direct_s,
+                          sigma_max_rel_diff_qr_vs_direct=float(((R_S - S).abs() / S.max()).max()))),
+          flush=True)
+    del u, m, state, _U, S, _Vh
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap}
+    extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics}
     names = sys.argv[1:] or [*CONFIGS, *extra]
     unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:

@@ -10,13 +10,29 @@ numpy input on the CUDA card unless ``device="cpu"`` is asked for.
 :mod:`pymbar_tpu` (JAX) stays the reference; this package imports neither
 it nor JAX.
 
-Exported so far: ``MBAR``, ``testsystems`` and ``utils``.  The rest of
-pymbar_tpu's surface (FES, BAR/EXP, timeseries, confidenceintervals) is
-still to be ported.
+Exported: ``MBAR`` (with its diagnostics: ``Log_W_nk``, ``W_nk``,
+``weights()``, ``compute_effective_sample_number``, ``compute_overlap``),
+the two-state estimators ``bar``, ``bar_overlap``, ``bar_zero``, ``exp``
+and ``exp_gauss``, and the host modules ``timeseries``, ``testsystems``,
+``confidenceintervals`` and ``utils``.  ``FES`` is still to be ported.
 """
 
+from pymbar_tpu_torch import confidenceintervals  # noqa: F401
 from pymbar_tpu_torch import testsystems  # noqa: F401
+from pymbar_tpu_torch import timeseries  # noqa: F401
 from pymbar_tpu_torch import utils  # noqa: F401
 from pymbar_tpu_torch.mbar import MBAR
+from pymbar_tpu_torch.other_estimators import bar, bar_overlap, bar_zero, exp, exp_gauss
 
-__all__ = ["MBAR", "testsystems", "utils"]
+__all__ = [
+    "MBAR",
+    "bar",
+    "bar_overlap",
+    "bar_zero",
+    "exp",
+    "exp_gauss",
+    "timeseries",
+    "testsystems",
+    "confidenceintervals",
+    "utils",
+]

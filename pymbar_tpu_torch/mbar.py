@@ -1,19 +1,22 @@
 """The MBAR estimator class (PyTorch port).
 
 The counterpart of :class:`pymbar_tpu.mbar.MBAR` (reference pymbar 4.x
-mbar.py:64-1988) for the solve and the free-energy differences: the same
-constructor surface, result-dictionary schema and uncertainty methods
-None / 'svd-ew' / 'approximate' / 'bootstrap', the solve on a 1-D device
-mesh (``mesh=``) and bootstrap replicates on one device
-(``n_bootstraps=``).  Expectations, entropy, overlap, BAR initialization
-and the mesh bootstrap are still to be ported and raise
-:class:`ParameterError` where the constructor would need them.
+mbar.py:64-1988) for the solve, the free-energy differences and the
+diagnostics: the same constructor surface (initialization by zeros, mean
+reduced potential or a BAR chain), result-dictionary schema and uncertainty
+methods None / 'svd-ew' / 'approximate' / 'svd' / 'bootstrap', the weights
+(``Log_W_nk``, ``W_nk``, ``weights()``), the effective sample numbers and
+the overlap, the solve on a 1-D device mesh (``mesh=``) and bootstrap
+replicates on one device (``n_bootstraps=``).  Expectations, entropy and
+the mesh bootstrap are still to be ported; the constructor raises
+:class:`ParameterError` where it would need the mesh bootstrap.
 
 ``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
 is, a numpy array goes to ``device`` (default: the CUDA card; without one,
 pass ``device="cpu"``).  Nothing moves between devices on its own.  Theta's
 K x K algebra runs where the Gram is: on the card through the rank-nnz
-form, on the CPU through the dense numpy eigh + pinv.
+form, on the CPU through the dense numpy eigh + pinv; the 'svd' estimator
+factors W on u_kn's device.
 """
 
 import logging
@@ -22,7 +25,8 @@ import numpy as np
 import torch
 
 from pymbar_tpu_torch import solvers as mbar_solvers
-from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization
+from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization, mbar_log_W_nk
+from pymbar_tpu_torch.other_estimators import bar
 from pymbar_tpu_torch.parallel.sharding import default_mesh, sharded_solve_mbar_for_all_states
 from pymbar_tpu_torch.solvers import (
     BOOTSTRAP_SOLVER_PROTOCOL,
@@ -32,7 +36,12 @@ from pymbar_tpu_torch.solvers import (
     target_device,
 )
 from pymbar_tpu_torch.solvers_large import solve_mbar_dd_bootstrap
-from pymbar_tpu_torch.utils import ParameterError, kln_to_kn
+from pymbar_tpu_torch.utils import (
+    ConvergenceError,
+    ParameterError,
+    check_w_normalized,
+    kln_to_kn,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -100,17 +109,21 @@ class MBAR:
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
     a numpy ``u_kn`` is placed (default "cuda", and without a card a
     :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
-    device is used as it is).  ``initialize="BAR"`` and ``n_bootstraps > 0``
-    with a mesh are not yet ported and raise :class:`ParameterError`.
+    device is used as it is).  ``n_bootstraps > 0`` with a mesh is not yet
+    ported and raises :class:`ParameterError`.
+
+    ``initialize="BAR"`` chains pairwise BAR along adjacent sampled states:
+    each pair's work values are gathered from ``u_kn`` on its device in one
+    pass and handed to the host :func:`pymbar_tpu_torch.bar`.
 
     ``n_bootstraps``: replicates drawn with the object's numpy
     ``default_rng(rseed)`` in the JAX package's order (replicate, then
     state), so a seed gives ``pymbar_tpu.MBAR``'s ``bootstrap_rints``.  On
-    a dd solve with every state sampled and the default bootstrap protocol
-    they ride the base solve's planes as counts-weighted polishes
-    (:func:`pymbar_tpu_torch.solvers_large.solve_mbar_dd_bootstrap`, which
-    sets ``bootstrap_at_floor``); otherwise each replicate is solved in
-    turn on ``u_kn[:, rints]`` under ``bootstrap_solver_protocol``.  Where
+    a dd solve with every state sampled, no BAR start and the default
+    bootstrap protocol they ride the base solve's planes as counts-weighted
+    polishes (:func:`pymbar_tpu_torch.solvers_large.solve_mbar_dd_bootstrap`,
+    which sets ``bootstrap_at_floor``); otherwise each replicate is solved
+    in turn on ``u_kn[:, rints]`` under ``bootstrap_solver_protocol``.  Where
     the automatic choice would take the mesh of several cards, a bootstrap
     takes the single-card dd route instead (the mesh bootstrap is not yet
     ported).
@@ -151,8 +164,6 @@ class MBAR:
     ):
         if n_bootstraps < 0:
             logger.warning("n_bootstraps must be an integer >= 0")
-        if initialize == "BAR":
-            raise ParameterError("initialize='BAR' is not yet ported to pymbar_tpu_torch")
 
         self.N_k = np.array(N_k, dtype=np.int64)
         self.u_kn = _u_tensor(u_kn, self.N_k, device)
@@ -196,7 +207,7 @@ class MBAR:
                 )
             self.f_k = initial_f_k - initial_f_k[0]
         else:
-            self._initializeFreeEnergies(verbose, method=initialize)
+            self._initializeFreeEnergies(verbose, method=initialize, f_k_init=initial_f_k)
 
         # The mesh front door: mesh="auto" takes every visible card when
         # there are several; a Mesh is honored as it is.  An explicit
@@ -256,6 +267,7 @@ class MBAR:
                 and len(self.solver_protocol) == 1
                 and self.solver_protocol[0]["method"] == "dd"
                 and self.K_nonzero == self.K
+                and initialize != "BAR"
             )
             if counts_route:
                 counts = bootstrap_counts(self.bootstrap_rints, self.N)
@@ -291,8 +303,15 @@ class MBAR:
         if self.n_bootstraps > 0:
             self.f_k_boots = (
                 f_boots if f_boots is not None
-                else self._bootstrap_sequential(bootstrap_solver_protocol, verbose)
+                else self._bootstrap_sequential(
+                    bootstrap_solver_protocol, verbose, bar_start=initialize == "BAR"
+                )
             )
+
+        # Log_W_nk materializes on first access: an N x K array that
+        # solve-only users never need.
+        self._Log_W_nk = None
+        self._Log_W_nk_assigned = False
 
         if self.verbose:
             logger.info(f"Final dimensionless free energies f_k = {self.f_k}")
@@ -301,15 +320,19 @@ class MBAR:
         """The route gate's size test: a CUDA u_kn of at least _DD_ROUTE_BYTES."""
         return self.u_kn.is_cuda and self.u_kn.nbytes >= _DD_ROUTE_BYTES
 
+    def _state_indices(self):
+        """Each state's sample indices, ascending: ``np.where(x_kindices ==
+        k)[0]`` for every k (the JAX package's per-state scans of N), from
+        one stable sort."""
+        order = np.argsort(self.x_kindices, kind="stable")
+        starts = np.searchsorted(self.x_kindices[order], np.arange(self.K + 1))
+        return [order[starts[k]:starts[k + 1]] for k in range(self.K)]
+
     def _draw_bootstrap_rints(self, n_bootstraps):
         """(B, N) resample indices from ``self.rng``, drawn replicate by
         replicate and state by state as the JAX package does (mbar.py:
-        871-895).  The per-state index lists (``np.where(x_kindices == k)``
-        there, one scan of N per state and replicate) draw nothing, so they
-        come once from one stable sort, which keeps each list ascending."""
-        order = np.argsort(self.x_kindices, kind="stable")
-        starts = np.searchsorted(self.x_kindices[order], np.arange(self.K + 1))
-        k_indices = [order[starts[k]:starts[k + 1]] for k in range(self.K)]
+        871-895)."""
+        k_indices = self._state_indices()
         rints = np.zeros((n_bootstraps, self.N), int)
         for b in range(n_bootstraps):
             for k, idx in enumerate(k_indices):
@@ -319,17 +342,21 @@ class MBAR:
                 rints[b, idx] = idx[self.rng.integers(n_k, size=n_k)]
         return rints
 
-    def _bootstrap_sequential(self, bootstrap_solver_protocol, verbose):
+    def _bootstrap_sequential(self, bootstrap_solver_protocol, verbose, bar_start=False):
         """Each replicate solved in turn on its resampled columns
-        ``u_kn[:, rints]`` from the base f_k (the JAX package's sequential
-        route, mbar.py:1013-1031).  Returns f_k_boots (B, K)."""
+        ``u_kn[:, rints]`` from the base f_k, or with ``bar_start`` from a
+        BAR chain on those columns (the JAX package's sequential route,
+        mbar.py:1013-1031).  Returns f_k_boots (B, K)."""
         f_k_boots = np.zeros((self.n_bootstraps, self.K))
         maxfrac = int(max(1, 0.1 * self.n_bootstraps))
         for b in range(self.n_bootstraps):
             rints = torch.as_tensor(self.bootstrap_rints[b], device=self.u_kn.device)
+            u_b = self.u_kn.index_select(1, rints)
+            f_k_init = self.f_k.copy()
+            if bar_start:
+                f_k_init = self._initialize_with_bar(u_b, f_k_init=self.f_k)
             f_k_boots[b], _ = mbar_solvers.solve_mbar_for_all_states(
-                self.u_kn.index_select(1, rints), self.N_k, self.f_k.copy(),
-                self.states_with_samples, bootstrap_solver_protocol,
+                u_b, self.N_k, f_k_init, self.states_with_samples, bootstrap_solver_protocol,
             )
             if verbose and b % maxfrac == 0:
                 logger.info(f"Calculated {b + 1:d}/{self.n_bootstraps:d} bootstrap samples")
@@ -379,6 +406,8 @@ class MBAR:
         self.mesh = None
         self.solver_protocol = ()
         self.solver_results = []
+        self._Log_W_nk = None
+        self._Log_W_nk_assigned = False
         return self
 
     def _scan_duplicate_states(self, relative_tolerance=1.0e-7):
@@ -442,6 +471,116 @@ class MBAR:
         return prot
 
     # -------------------------------------------------------------------------
+    # Weights
+    # -------------------------------------------------------------------------
+
+    @property
+    def Log_W_nk(self):
+        """The N x K log-weight matrix (reference mbar.py:455) as a numpy
+        array, computed on u_kn's device on first access and cached."""
+        if self._Log_W_nk is None:
+            self._Log_W_nk = mbar_log_W_nk(self.u_kn, self.N_k, self.f_k).cpu().numpy()
+        return self._Log_W_nk
+
+    @Log_W_nk.setter
+    def Log_W_nk(self, value):
+        self._Log_W_nk = value
+        self._Log_W_nk_assigned = True
+
+    def _W_nk_tensor(self):
+        """exp(Log_W_nk) as an (N, K) tensor on u_kn's device.  Computed
+        there (the cached host copy holds the same values, and moving it
+        back would cost more than the pass), unless Log_W_nk was assigned."""
+        if not self._Log_W_nk_assigned:
+            return mbar_log_W_nk(self.u_kn, self.N_k, self.f_k).exp_()
+        return torch.as_tensor(self._Log_W_nk, dtype=torch.float64, device=self.u_kn.device).exp()
+
+    @property
+    def W_nk(self):
+        """The N x K weight matrix ``exp(Log_W_nk)`` as a numpy array.
+
+        ``W_nk[n, k]`` is sample n's normalized weight in state k's
+        estimate (columns sum to 1; rows weighted by N_k sum to 1).
+        """
+        return self._W_nk_tensor().cpu().numpy()
+
+    def weights(self):
+        """Retrieve the N x K weight matrix (method form of :attr:`W_nk`).
+
+        Returns
+        -------
+        np.ndarray, shape (N, K)
+            ``W_nk = exp(Log_W_nk)``.  Reference: ``pymbar.MBAR.weights``
+            (pymbar 4.x mbar.py:481-493).
+        """
+        return self.W_nk
+
+    # -------------------------------------------------------------------------
+    # Diagnostics
+    # -------------------------------------------------------------------------
+
+    def _gram_colsum(self):
+        """(W^T W, colsum W) as tensors on u_kn's device, from one streamed
+        pass: W never exists in (N, K) form."""
+        gram, colsum, _rowstats = mbar_gram_normalization(
+            self.u_kn, self.N_k, self.f_k, tolerance=np.inf
+        )
+        return gram, colsum
+
+    def compute_effective_sample_number(self, verbose=False):
+        """Kish effective sample size of each state's MBAR estimate.
+
+        ``N_eff[k] = 1 / sum_n W_nk^2`` -- how many independent samples the
+        weighted estimate at state k is effectively worth; bounded by
+        ``N_k <= N_eff[k] <= sum_k N_k`` for sampled states.  ``sum_n
+        W_nk^2`` is the Gram diagonal, so this is one streamed pass on
+        u_kn's device and only the K diagonal values leave it.  Reference:
+        ``pymbar.MBAR.compute_effective_sample_number`` (pymbar 4.x
+        mbar.py:496-560).
+
+        Returns
+        -------
+        np.ndarray, shape (K,)
+        """
+        gram, _colsum = self._gram_colsum()
+        N_eff = 1.0 / torch.diagonal(gram).cpu().numpy()
+        if verbose:
+            for k in range(self.K):
+                logger.info(f"Effective number of sample in state {k:d} is {N_eff[k]:10.3f}")
+                logger.info(
+                    "Efficiency for state {:d} is {:6f}/{:d} = {:10.4f}".format(
+                        k, N_eff[k], self.N, N_eff[k] / self.N
+                    )
+                )
+        return N_eff
+
+    def compute_overlap(self):
+        """Phase-space overlap between the sampled states.
+
+        Returns
+        -------
+        dict
+            ``'matrix'`` : (K, K) overlap matrix ``O = N_k (W^T W)`` (row k
+            sums to 1); ``'eigenvalues'`` : its spectrum, descending;
+            ``'scalar'`` : ``1 - lambda_2`` (1 = perfect overlap, 0 =
+            disconnected).  Reference: ``pymbar.MBAR.compute_overlap``
+            (pymbar 4.x mbar.py:563-617).
+
+        Notes
+        -----
+        O = G diag(N_k) with G = W^T W symmetric, so O has the spectrum of
+        the symmetric D^1/2 G D^1/2 (similar through D^1/2; empty states
+        give exact zero rows and columns in both): the spectrum comes from
+        ``eigvalsh`` on the Gram's device.
+        """
+        gram, _colsum = self._gram_colsum()
+        s = torch.sqrt(torch.as_tensor(self.N_k, dtype=torch.float64, device=gram.device))
+        eigenvals = torch.linalg.eigvalsh(s[:, None] * gram * s[None, :])
+        eigenvals = torch.flip(eigenvals, dims=(0,)).cpu().numpy()
+        O = self.N_k * gram.cpu().numpy()
+        return dict(scalar=1 - eigenvals[1], eigenvalues=eigenvals, matrix=O)
+
+    # -------------------------------------------------------------------------
     # Free energy differences
     # -------------------------------------------------------------------------
 
@@ -457,11 +596,11 @@ class MBAR:
         Parameters
         ----------
         compute_uncertainty : bool, optional, default True
-        uncertainty_method : {None, 'approximate', 'svd-ew', 'bootstrap'}, optional
+        uncertainty_method : {None, 'approximate', 'svd', 'svd-ew', 'bootstrap'}, optional
             ``None``/'svd-ew' uses the eigendecomposition form of Eq. D4;
-            'approximate' uses Theta = W^T W (Kong 2003); 'bootstrap' the
-            standard deviation over the replicates of ``n_bootstraps``.
-            'svd' is not yet ported.
+            'approximate' uses Theta = W^T W (Kong 2003); 'svd' the explicit
+            SVD form of W; 'bootstrap' the standard deviation over the
+            replicates of ``n_bootstraps``.
         warning_cutoff : float, optional, default 1.0e-10
             Warn when a squared uncertainty is more negative than this.
         return_theta : bool, optional, default False
@@ -510,23 +649,83 @@ class MBAR:
         gives W^T W, the column sums and the row-check aggregates.  A CUDA
         Gram stays on the card for the rank-nnz form
         (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
-        accelerator; a CPU Gram takes the dense numpy path.  Theta is
-        returned as a numpy array."""
+        accelerator; a CPU Gram takes the dense numpy path
+        (:meth:`_theta_from_gram`).  'svd' needs W itself and factors
+        exp(Log_W_nk) on u_kn's device
+        (:meth:`_computeAsymptoticCovarianceMatrix`).  Theta is returned as a
+        numpy array."""
         if method is None or method == "bootstrap":
             method = "svd-ew"
         if method == "svd":
-            raise ParameterError(
-                "uncertainty_method='svd' is not yet ported to pymbar_tpu_torch"
+            return self._computeAsymptoticCovarianceMatrix(
+                self._W_nk_tensor(), self.N_k, method="svd"
             )
         if method not in ("svd-ew", "approximate"):
             raise ParameterError(f"Method {method} unrecognized.")
         gram, colsum, rowstats = mbar_gram_normalization(self.u_kn, self.N_k, self.f_k)
         self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
+        return self._theta_from_gram(gram, self.N_k, method)
+
+    @classmethod
+    def _theta_from_gram(cls, gram, N_k, method):
+        """Theta (numpy) from the K x K Gram W^T W for 'approximate' (the
+        Gram itself) or 'svd-ew': on a CUDA Gram by the rank-nnz form
+        (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
+        accelerator; on a CPU Gram by the dense numpy path."""
         if method == "approximate":
             return gram.cpu().numpy()
         if gram.is_cuda:
-            return self._theta_svd_ew_lowrank(gram, self.N_k).cpu().numpy()
-        return self._theta_svd_ew_from_gram(gram.numpy(), self.N_k)
+            return cls._theta_svd_ew_lowrank(gram, N_k).cpu().numpy()
+        return cls._theta_svd_ew_from_gram(gram.numpy(), N_k)
+
+    @staticmethod
+    def _svd_sigma_v(W):
+        """Sigma and V of the (N, K) W = U Sigma V^T, on W's device: an f64
+        Householder QR W = Q R (``mode="r"``, Q never formed), then the SVD
+        of the K x K R = U_R Sigma V^T, which has W's Sigma and V."""
+        R = torch.linalg.qr(W, mode="r")[1]
+        _U, S, Vh = torch.linalg.svd(R)
+        return S, Vh.T
+
+    @staticmethod
+    def _pseudoinverse(A, tol=1.0e-10):
+        """Moore-Penrose pseudoinverse of a tensor, cutting singular values
+        at ``tol`` times the largest (np.linalg.pinv's rcond; reference
+        mbar.py:1717-1735)."""
+        return torch.linalg.pinv(A, rtol=tol)
+
+    def _computeAsymptoticCovarianceMatrix(self, W, N_k, method=None):
+        """Asymptotic covariance Theta of the log normalization constants
+        from the (N, K) weights ``W`` (numpy, or a tensor on any device),
+        returned as a numpy array (reference mbar.py:1756-1864):
+
+        * 'approximate' -- Theta = W^T W (Kong 2003; underestimates);
+        * 'svd'         -- Eq. D4 from the SVD of W;
+        * 'svd-ew'      -- Eq. D4/D5 from eigh(W^T W) (the default).
+
+        W^T W is one matmul on W's device.  'svd' needs only Sigma and V of
+        W, from :meth:`_svd_sigma_v`, with no N x K factor besides W.
+        """
+        if method is None or method == "bootstrap":
+            method = "svd-ew"
+        W = torch.as_tensor(W)
+        N, K = W.shape
+        N_k = np.asarray(N_k)
+        if K != N_k.size:
+            raise ParameterError("W must be NxK, where N_k is a K-dimensional array.")
+        if np.sum(N_k) != N:
+            raise ParameterError("W must be NxK, where N = sum_k N_k.")
+        check_w_normalized(W, N_k)
+
+        if method in ("approximate", "svd-ew"):
+            return self._theta_from_gram(W.T @ W, N_k, method)
+        if method != "svd":
+            raise ParameterError(f"Method {method} unrecognized.")
+        S, V = self._svd_sigma_v(W)
+        VS = V * S[None, :]  # V @ Sigma
+        Np = torch.as_tensor(N_k, dtype=W.dtype, device=W.device)
+        inner = torch.eye(K, dtype=W.dtype, device=W.device) - VS.T @ (Np[:, None] * VS)
+        return (VS @ self._pseudoinverse(inner) @ VS.T).cpu().numpy()
 
     @staticmethod
     def _theta_svd_ew_from_gram(gram, N_k):
@@ -634,9 +833,9 @@ class MBAR:
             A[pair[0], pair[1]] = 0
             A[pair[1], pair[0]] = 0
 
-    def _initializeFreeEnergies(self, verbose=False, method="zeros"):
-        """Initial f_k guess: zeros or mean reduced potential (reference
-        mbar.py:1868-1917; the BAR chain is not yet ported)."""
+    def _initializeFreeEnergies(self, verbose=False, method="zeros", f_k_init=None):
+        """Initial f_k guess: zeros, mean reduced potential or a BAR chain
+        (reference mbar.py:1868-1917)."""
         if method == "zeros":
             if verbose:
                 logger.info("Initializing free energies to zero.")
@@ -657,6 +856,67 @@ class MBAR:
                     "is expected behavior."
                 )
             self.f_k = means
+        elif method == "BAR":
+            self.f_k = self._initialize_with_bar(self.u_kn, f_k_init)
         else:
             raise ParameterError("Method " + method + " unrecognized.")
         self.f_k[:] = self.f_k[:] - self.f_k[0]
+
+    def _bar_pair_work(self, u_kn):
+        """The BAR chain's pairs (k, l) of adjacent sampled states and each
+        pair's host work values (w_F, w_R): w_F = u_l - u_k on state k's
+        samples, w_R = u_k - u_l on state l's.  ``u_kn`` is a (K, N) tensor
+        whose columns follow ``x_kindices``; every pair's values come out of
+        it in one gather on its device."""
+        initialization_order = np.where(self.N_k > 0)[0]
+        pairs = list(zip(initialization_order[:-1], initialization_order[1:]))
+        if not pairs:
+            return pairs, []
+        k_indices = self._state_indices()
+        rows_a, rows_b, cols, bounds = [], [], [], [0]
+        for k, l in pairs:
+            for a, b, idx in ((l, k, k_indices[k]), (k, l, k_indices[l])):
+                rows_a.append(np.full(idx.size, a))
+                rows_b.append(np.full(idx.size, b))
+                cols.append(idx)
+                bounds.append(bounds[-1] + idx.size)
+        dev = u_kn.device
+        ra, rb, c = (torch.as_tensor(np.concatenate(x), device=dev) for x in (rows_a, rows_b, cols))
+        w = (u_kn[ra, c] - u_kn[rb, c]).cpu().numpy()
+        return pairs, [(w[bounds[2 * i]:bounds[2 * i + 1]], w[bounds[2 * i + 1]:bounds[2 * i + 2]])
+                       for i in range(len(pairs))]
+
+    def _initialize_with_bar(self, u_kn, f_k_init=None):
+        """Chain pairwise BAR along adjacent sampled states (reference
+        mbar.py:1936-1988), on the work values of ``_bar_pair_work(u_kn)``;
+        each pair's BAR solve runs on the host."""
+        if f_k_init is None:
+            f_k_init = np.zeros(len(self.f_k))
+        else:
+            f_k_init = np.array(f_k_init, dtype=np.float64, copy=True)
+        pairs, works = self._bar_pair_work(u_kn)
+
+        starting_f_k_init = f_k_init.copy()
+        for (k, l), (w_F, w_R) in zip(pairs, works):
+            if len(w_F) > 0 and len(w_R) > 0:
+                try:
+                    f_k_init[l] = (
+                        f_k_init[k]
+                        + bar(
+                            w_F,
+                            w_R,
+                            method="bisection",
+                            DeltaF=starting_f_k_init[l] - starting_f_k_init[k],
+                            relative_tolerance=0.00001,
+                            verbose=False,
+                            maximum_iterations=100,
+                            compute_uncertainty=False,
+                        )["Delta_f"]
+                    )
+                except ConvergenceError:
+                    logger.warning("WARNING: BAR did not converge to within tolerance")
+                    f_k_init[l] = f_k_init[k]
+            else:
+                f_k_init[l] = 0
+
+        return f_k_init

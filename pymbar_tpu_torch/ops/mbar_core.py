@@ -34,6 +34,7 @@ __all__ = [
     "mbar_objective_and_gradient",
     "mbar_hessian",
     "mbar_W_nk",
+    "mbar_log_W_nk",
     "mbar_w_nk_gram",
     "mbar_gram_normalization",
     "gram_f32_acc64",
@@ -227,6 +228,20 @@ def mbar_W_nk(u_kn, N_k, f_k):
     mbar_solvers.py:479-507).  Only for small validation paths."""
     f_k = _like(f_k, u_kn)
     return _weights(u_kn, f_k, log_denominator_n(u_kn, N_k, f_k)).T
+
+
+def mbar_log_W_nk(u_kn, N_k, f_k):
+    """Normalized log-weights f_k - u_kn - logden_n, Eq. 9, as a contiguous
+    (N, K) tensor on u's device (reference mbar_solvers.py:439-476).  Each
+    column chunk's (K, nc) block is written transposed into the output, so
+    the only full-size allocation is the result itself."""
+    K, N = u_kn.shape
+    f_k = _like(f_k, u_kn)
+    logden = log_denominator_n(u_kn, N_k, f_k)
+    out = torch.empty((N, K), dtype=u_kn.dtype, device=u_kn.device)
+    for s, e in _col_chunks(u_kn):
+        out[s:e] = (f_k[:, None] - u_kn[:, s:e]).sub_(logden[None, s:e]).T
+    return out
 
 
 def gram_f32_acc64(u_kn32, N_k32, f_k32, c32=None):

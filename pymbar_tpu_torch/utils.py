@@ -1,4 +1,4 @@
-"""Host-side numpy utilities: layout converters, validation, stable logsumexp.
+"""Host-side utilities: layout converters, validation, stable logsumexp.
 
 A numpy carry-over of :mod:`pymbar_tpu.utils` (itself at parity with
 pymbar 4.x utils.py:41-114, :279-337, :340-393 and :401-422), kept as its
@@ -9,6 +9,7 @@ import warnings
 from itertools import zip_longest
 
 import numpy as np
+import torch
 
 __all__ = [
     "kln_to_kn",
@@ -195,12 +196,12 @@ def check_w_normalized(W, N_k, tolerance=1.0e-4):
 
     Raises :class:`ParameterError` with the same diagnostic content as the
     reference (utils.py:340-393) when either normalization fails; returns
-    None on success.
+    None on success.  ``W`` is a numpy array or a tensor on any device.
     """
-    N, K = W.shape
+    W = torch.as_tensor(W)  # both sums on W's device; only K + N values leave it
     N_k = np.asarray(N_k)
-
-    column_sums = np.sum(W, axis=0)
+    column_sums = W.sum(dim=0).cpu().numpy()
+    row_sums = (W @ torch.as_tensor(N_k, dtype=W.dtype, device=W.device)).cpu().numpy()
     badcolumns = np.abs(column_sums - 1) > tolerance
     if np.any(badcolumns):
         firstbad = int(np.flatnonzero(badcolumns)[0])
@@ -213,7 +214,6 @@ def check_w_normalized(W, N_k, tolerance=1.0e-4):
             "This generally indicates the free energies are not converged."
         )
 
-    row_sums = np.sum(W * N_k, axis=1)
     badrows = np.abs(row_sums - 1) > tolerance
     if np.any(badrows):
         firstbad = int(np.flatnonzero(badrows)[0])

@@ -36,7 +36,7 @@ def problem():
 @pytest.fixture(params=["one_chunk", "many_chunks"])
 def chunking(request, monkeypatch):
     if request.param == "many_chunks":
-        monkeypatch.setattr(tc, "_CHUNK_BYTES", 8 * K * 100)  # 100 f64 columns
+        monkeypatch.setattr(tc, "_CHUNK_BYTES", 8 * K * 1000)  # 9 chunks, the last ragged
     return request.param
 
 
@@ -68,6 +68,7 @@ CASES = {
     "mbar_w_nk_gram": lambda m, u, N, f: m.mbar_w_nk_gram(u, N, f),
     "mbar_hessian": lambda m, u, N, f: m.mbar_hessian(u, N, f),
     "mbar_W_nk": lambda m, u, N, f: m.mbar_W_nk(u, N, f),
+    "mbar_log_W_nk": lambda m, u, N, f: m.mbar_log_W_nk(u, N, f),
     "precondition_u_kn": lambda m, u, N, f: m.precondition_u_kn(u, N, f),
 }
 
