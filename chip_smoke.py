@@ -33,7 +33,10 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    sentinel column's ~-1e10; K5's sums <= 1e-13 relative), K6 then K7 on
    K5's masked ld equal to K5 (<= 1e-13), K5's lognum_k + g_k = log S_k of
    K1 (<= 1e-12), K5 unmoved by pad columns and exactly 0 on an all-pad
-   matrix, K7's phantom terms kept on pad columns; times at the flagship.
+   matrix, K7's phantom terms kept on pad columns; times at the flagship,
+   with those of the PyTorch calls that compute K6's and K7's functions
+   (torch.logsumexp over k, over n; both in turn for K5) on an f64 u built
+   once from the same planes and with the plane combine.
    Times are medians of 5 synchronize-fenced calls.
    1d. The roofline probes (K8a-c): fma_chain in float32 and float64 over 2
    steps and exp_chain over 6 against their plain recurrences (16 ulp; x^2
@@ -103,6 +106,25 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    6 sigma of MBAR's and of the analytic value); statistical_inefficiency
    and subsample_correlated_data on correlated_timeseries_example at its
    published length (g within 50% of its analytic value, one sample per g).
+7. The rest of MBAR at the flagship, on phase 5's u_kn and its samples
+   x_n, around phase 2's solution (MBAR.from_solution), each call on its
+   own line with its wall, its peak device memory above what was resident
+   and the streamed pass-B forms it ran: compute_expectations of x_n and
+   x_n^2 (|z| < 6 against the analytic means, by the structured one-row
+   Gram), the differences (mu equal to the averages' within 1e-12, sigma
+   symmetric with a zero diagonal), compute_multiple_expectations of both
+   at state K/2 as a new state (mu within 1e-10 and sigma within 1e-6
+   relative of the averages', |z| < 6), compute_perturbed_free_energies of
+   four new oscillators (|z| < 6) and of states 0, K/2, K-1 (Delta_f
+   within 1e-10 and dDelta_f within 1e-6 relative of phase 2's),
+   compute_entropy_and_enthalpy (Delta_f within 1e-10 of phase 2's, |z| <
+   6 for Delta_s and Delta_u, finite symmetric sigmas, the structured diag
+   Gram on u_kn itself with a peak under half of u_kn), the bootstrap of
+   the expectations on phase 5's 64 replicates (mu within 1e-9, the
+   median sigma_boot / sigma_asym in [0.8, 1.25]), and phase 2's
+   checkpoint resumed with skip_solve (f_k bit for bit, the same u_kn
+   storage) and by a solve (f_k within 1e-10, no more polish iterations
+   than phase 2's, one K1 launch each).
 
 Then the card, the kernels line and {"ok": true, "device": {...}} close the
 output.  Without a CUDA card, or without the repository beside this file,
@@ -115,6 +137,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -184,7 +207,7 @@ def make_planes(torch, K, N, gen, dev):
 def oscillators(torch, K, npk, gen, dev):
     """u_kn of K harmonic oscillators (O = linspace(0, 5), K_f =
     linspace(1, 3)), npk samples from each, made on the card; with the
-    analytic f_k - f_0."""
+    analytic f_k - f_0 and the samples x."""
     N = K * npk
     O = torch.linspace(0.0, 5.0, K, dtype=torch.float64, device=dev)
     Kf = torch.linspace(1.0, 3.0, K, dtype=torch.float64, device=dev)
@@ -196,7 +219,7 @@ def oscillators(torch, K, npk, gen, dev):
     for s in range(0, N, step):
         u_kn[:, s : s + step] = 0.5 * Kf[:, None] * (x[None, s : s + step] - O[:, None]) ** 2
     fa = (-0.5 * torch.log(2 * torch.pi / Kf)).cpu().numpy()
-    return u_kn, [npk] * K, fa - fa[0]
+    return u_kn, [npk] * K, fa - fa[0], x
 
 
 def log_err(a, b):
@@ -259,6 +282,161 @@ def check_free_energies(res, z, label):
         fail(f"{label}: dDelta_f is not finite")
 
 
+def phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, boot_mbar,
+           ck_path):
+    """Expectations, perturbed free energies, entropy and enthalpy, the
+    bootstrap of expectations and the checkpoint at the flagship: u_kn and
+    its samples x_n (phase 2's draw), phase 2's solution f_flag (with its
+    Delta_f and dDelta_f on states 0, K/2, K-1 and its polish iterations),
+    phase 5's B = 64 object and phase 2's checkpoint file."""
+    from pymbar_tpu_torch import MBAR, checkpoint, testsystems
+    from pymbar_tpu_torch import mbar as tmbar
+    from pymbar_tpu_torch.ops import wsum
+
+    K = FLAGSHIP_K
+    mid = K // 2
+    tc = testsystems.HarmonicOscillatorsTestCase(O_k=np.linspace(0.0, 5.0, K),
+                                                  K_k=np.linspace(1.0, 3.0, K))
+    routes = ("AUG_B_LOGROW_PASSES", "AUG_B_DIAG_PASSES", "AUG_B_GENERAL_PASSES")
+
+    def run(label, fn, route=None):
+        """fn's result; one line with its wall (synchronize-fenced), its
+        peak device memory above what was resident before it, and the
+        streamed pass-B forms it ran, which must be ``route`` when given."""
+        for n in routes:
+            setattr(tmbar, n, 0)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - resident
+        passes = {n: getattr(tmbar, n) for n in routes}
+        emit(f"7_{label}", s=wall, peak_above_resident=peak, pass_b=passes)
+        if route is not None and passes != {n: int(n == route) for n in routes}:
+            fail(f"{label}: pass B ran {passes}, not one {route}")
+        return out, peak
+
+    def z_max(est, truth, sigma):
+        z = np.abs((np.asarray(est) - truth) / np.asarray(sigma))
+        return float(z.max()) if np.isfinite(z).all() else float("nan")
+
+    def z_diff_max(delta, d_delta, truth):
+        """max |z| of the off-diagonal differences against truth_j - truth_i."""
+        off = ~np.eye(delta.shape[0], dtype=bool)
+        z = (delta - (truth[None, :] - truth[:, None]))[off] / d_delta[off]
+        return float(np.abs(z).max()) if np.isfinite(z).all() else float("nan")
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    m = MBAR.from_solution(u_kn, N_k, f_flag)
+    checks = {}
+
+    # (a), (b): averages at every state, by the structured one-row Gram
+    ex1, _ = run("a_expectations_x", lambda: m.compute_expectations(x_n), "AUG_B_LOGROW_PASSES")
+    ex2, _ = run("b_expectations_x2", lambda: m.compute_expectations(x_n**2), "AUG_B_LOGROW_PASSES")
+    checks["a_max_z"] = z_max(ex1["mu"], tc.analytical_means(), ex1["sigma"])
+    checks["b_max_z"] = z_max(ex2["mu"], tc.analytical_observable("position^2"), ex2["sigma"])
+    # (c): differences
+    exd, _ = run("c_differences", lambda: m.compute_expectations(x_n, output="differences"),
+                 "AUG_B_LOGROW_PASSES")
+    checks["c_mu_vs_a"] = float(np.abs(exd["mu"] - (ex1["mu"][None, :] - ex1["mu"][:, None])).max())
+    checks["c_sigma_asymmetry"] = float(np.abs(exd["sigma"] - exd["sigma"].T).max()
+                                        / np.abs(exd["sigma"]).max())
+    checks["c_sigma_diagonal"] = float(np.abs(np.diag(exd["sigma"])).max())
+    # (d): two observables at state K/2 as a new state
+    mult, _ = run("d_multiple", lambda: m.compute_multiple_expectations(
+        torch.stack([x_n, x_n**2]), u_kn[mid], compute_covariance=True), "AUG_B_GENERAL_PASSES")
+    mu_ab = np.array([ex1["mu"][mid], ex2["mu"][mid]])
+    sig_ab = np.array([ex1["sigma"][mid], ex2["sigma"][mid]])
+    checks["d_mu_vs_ab"] = float(np.abs(mult["mu"] - mu_ab).max())
+    checks["d_sigma_rel_vs_ab"] = rel(mult["sigma"], sig_ab)
+    checks["d_max_z"] = z_max(mult["mu"], np.array(
+        [tc.analytical_means()[mid], tc.analytical_observable("position^2")[mid]]), mult["sigma"])
+    checks["d_covariances_shape"] = list(mult["covariances"].shape)
+    # (e): four new oscillators inside the sampled range, then three sampled
+    # states as perturbed ones
+    O_new = np.array([0.6, 1.25, 2.5, 3.75])
+    K_new = np.array([1.2, 1.5, 2.0, 2.5])
+    u_ln = 0.5 * torch.as_tensor(K_new, device=x_n.device)[:, None] * (
+        x_n[None, :] - torch.as_tensor(O_new, device=x_n.device)[:, None]) ** 2
+    pert, _ = run("e_perturbed_new", lambda: m.compute_perturbed_free_energies(u_ln),
+                  "AUG_B_GENERAL_PASSES")
+    checks["e_max_z"] = z_diff_max(pert["Delta_f"], pert["dDelta_f"],
+                                   -0.5 * np.log(2 * np.pi / K_new))
+    rows3 = u_kn[[0, mid, K - 1]]
+    pert3, _ = run("e_perturbed_sampled", lambda: m.compute_perturbed_free_energies(rows3),
+                   "AUG_B_GENERAL_PASSES")
+    off = ~np.eye(3, dtype=bool)
+    checks["e_delta_f_vs_phase2"] = float(np.abs(pert3["Delta_f"] - flag_df3).max())
+    checks["e_ddelta_f_rel_vs_phase2"] = rel(pert3["dDelta_f"][off], flag_ddf3[off])
+    del u_ln, rows3
+    # (f): entropy and enthalpy on the aliased u_kn, by the structured diag Gram
+    ent, ent_peak = run("f_entropy", m.compute_entropy_and_enthalpy, "AUG_B_DIAG_PASSES")
+    checks["f_delta_f_vs_phase2"] = float(
+        np.abs(ent["Delta_f"] - (f_flag[None, :] - f_flag[:, None])).max())
+    checks["f_delta_s_max_z"] = z_diff_max(ent["Delta_s"], ent["dDelta_s"],
+                                           tc.analytical_entropies())
+    checks["f_delta_u_max_z"] = z_diff_max(ent["Delta_u"], ent["dDelta_u"], np.zeros(K))
+    checks["f_sigmas_finite_symmetric"] = all(
+        np.isfinite(ent[k]).all()
+        and np.abs(ent[k] - ent[k].T).max() <= 1e-10 * np.abs(ent[k]).max()
+        for k in ("dDelta_f", "dDelta_u", "dDelta_s"))
+    checks["f_peak_above_resident"] = ent_peak
+    # (g): bootstrap of the expectations on phase 5's replicates
+    boot, _ = run("g_bootstrap", lambda: boot_mbar.compute_expectations(
+        x_n, uncertainty_method="bootstrap"), "AUG_B_LOGROW_PASSES")
+    checks["g_mu_vs_a"] = float(np.abs(boot["mu"] - ex1["mu"]).max())
+    checks["g_sigma_boot_over_asym_median"] = float(np.median(boot["sigma"] / ex1["sigma"]))
+    # (h): the checkpoint of phase 2's object
+    same, _ = run("h_resume_skip_solve", lambda: checkpoint.resume_mbar(ck_path, u_kn,
+                                                                        skip_solve=True))
+    wsum.WSUM_LAUNCHES = 0
+    again, _ = run("h_resume_solve", lambda: checkpoint.resume_mbar(ck_path, u_kn))
+    resume_k1 = wsum.WSUM_LAUNCHES
+    info = again.solver_results[0]["info"]
+    checks["h_skip_solve_f_k_equal"] = bool(np.array_equal(same.f_k, f_flag))
+    checks["h_skip_solve_same_storage"] = same.u_kn.data_ptr() == u_kn.data_ptr()
+    checks["h_resume_f_k_vs_phase2"] = float(np.abs(again.f_k - f_flag).max())
+    checks["h_resume_polish_iterations"] = [info.get("polish_iterations"), flag_polish]
+    checks["h_resume_wsum_launches"] = resume_k1
+    emit("7_checks", **checks)
+
+    bad = [
+        name for name, ok in (
+            ("a |z| < 6", checks["a_max_z"] < 6),
+            ("b |z| < 6", checks["b_max_z"] < 6),
+            ("c mu", checks["c_mu_vs_a"] <= 1e-12),
+            ("c sigma symmetric, zero diagonal",
+             checks["c_sigma_asymmetry"] <= 1e-10 and checks["c_sigma_diagonal"] == 0.0),
+            ("d mu", checks["d_mu_vs_ab"] <= 1e-10),
+            ("d sigma", checks["d_sigma_rel_vs_ab"] <= 1e-6),
+            ("d |z| < 6", checks["d_max_z"] < 6),
+            ("e |z| < 6", checks["e_max_z"] < 6),
+            ("e Delta_f", checks["e_delta_f_vs_phase2"] <= 1e-10),
+            ("e dDelta_f", checks["e_ddelta_f_rel_vs_phase2"] <= 1e-6),
+            ("f Delta_f", checks["f_delta_f_vs_phase2"] <= 1e-10),
+            ("f Delta_s |z| < 6", checks["f_delta_s_max_z"] < 6),
+            ("f Delta_u |z| < 6", checks["f_delta_u_max_z"] < 6),
+            ("f sigmas", checks["f_sigmas_finite_symmetric"]),
+            ("f no copy of u_kn", ent_peak < u_kn.nbytes // 2),
+            ("g mu", checks["g_mu_vs_a"] <= 1e-9),
+            ("g sigma finite", bool(np.isfinite(boot["sigma"]).all())),
+            ("g median ratio", 0.8 <= checks["g_sigma_boot_over_asym_median"] <= 1.25),
+            ("h skip_solve",
+             checks["h_skip_solve_f_k_equal"] and checks["h_skip_solve_same_storage"]),
+            ("h resume f_k", checks["h_resume_f_k_vs_phase2"] <= 1e-10),
+            ("h resume polish", info.get("polish_iterations", np.inf) <= flag_polish
+             and resume_k1 == info.get("polish_iterations")),
+        ) if not ok
+    ]
+    if bad:
+        fail(f"phase 7 failed: {bad} ({checks})")
+
+
 def main():
     import torch
 
@@ -269,7 +447,7 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from pymbar_tpu_torch import MBAR, bar, exp, testsystems, timeseries
+    from pymbar_tpu_torch import MBAR, bar, checkpoint, exp, testsystems, timeseries
     from pymbar_tpu_torch.mbar import bootstrap_counts
     from pymbar_tpu_torch.ops import _build, lognum, roofline, wsum, wsum_split
     from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
@@ -624,6 +802,7 @@ def main():
     uh, ul, gh, gl = planes
     ld = lognum.logden_dd(uh, ul, gh, gl)
     m_k = lognum_shift(torch, uh, ld[0])
+    ln_flag = dd_to_f64(*lognum.lognum_dd(uh, ul, *ld, m_k))
     times["logden_dd"] = (median_ms(torch, lambda: lognum.logden_dd(*planes)),
                           median_ms(torch, lambda: lognum.logden_dd_plain(*planes)))
     times["lognum_dd"] = (median_ms(torch, lambda: lognum.lognum_dd(uh, ul, *ld, m_k)),
@@ -631,11 +810,43 @@ def main():
     times["lognum_fused_dd"] = (
         median_ms(torch, lambda: lognum.lognum_fused_dd(*planes, m_k, return_sums=True)),
         median_ms(torch, lambda: lognum.lognum_fused_dd_plain(*planes, m_k, return_sums=True)))
-    del planes, uh, ul, gh, gl, ld, m_k
+    # One PyTorch call computes K6's function (logsumexp over k) and one K7's
+    # (over n); K5's is the two in turn.  Timed on an f64 u built once from
+    # the same planes, then with the plane combine, which makes them take
+    # the kernels' own inputs (library_ms).
+    g64, ld64 = dd_to_f64(gh, gl), dd_to_f64(*ld)
+
+    def k6_lib(u):
+        return torch.logsumexp(g64[:, None] - u, dim=0)
+
+    def k7_lib(u, logden):
+        return torch.logsumexp(-logden[None, :] - u, dim=1)
+
+    def k5_lib(u):
+        return k7_lib(u, k6_lib(u))
+
+    u64 = dd_to_f64(uh, ul)
+    lib_err = dict(logden_dd=float((k6_lib(u64) - ld64).abs().max()),
+                   lognum_dd=float((k7_lib(u64, ld64) - ln_flag).abs().max()))
+    lib_ms = dict(logden_dd=median_ms(torch, lambda: k6_lib(u64)),
+                  lognum_dd=median_ms(torch, lambda: k7_lib(u64, ld64)),
+                  lognum_fused_dd=median_ms(torch, lambda: k5_lib(u64)))
+    del u64
+    torch.cuda.empty_cache()
+    lib_ms_combined = dict(
+        logden_dd=median_ms(torch, lambda: k6_lib(dd_to_f64(uh, ul))),
+        lognum_dd=median_ms(torch, lambda: k7_lib(dd_to_f64(uh, ul), dd_to_f64(*ld))),
+        lognum_fused_dd=median_ms(torch, lambda: k5_lib(dd_to_f64(uh, ul))),
+    )
+    for k in ln_names:
+        times[k] = (*times[k], lib_ms_combined[k])
+    del planes, uh, ul, gh, gl, ld, m_k, g64, ld64, ln_flag
     torch.cuda.empty_cache()
     emit("1_lognum_kernels", checks=lognum_checks, phantom_min_log_shift=phantom,
          max_abs_err={k: err[k] for k in ln_names}, shape=[FLAGSHIP_K, N_flag],
-         ms={k: times[k][0] for k in ln_names}, plain_ms={k: times[k][1] for k in ln_names})
+         ms={k: times[k][0] for k in ln_names}, plain_ms={k: times[k][1] for k in ln_names},
+         library_ms_f64_u=lib_ms, library_ms_with_plane_combine=lib_ms_combined,
+         library_max_abs_diff_vs_kernel=lib_err)
 
     # ---- phase 1d: the roofline probes K8a-c against their plain versions,
     # then the probe path
@@ -753,8 +964,8 @@ def main():
 
     # ---- phase 2: the main path at full size (K1 route, Theta on the card)
     flag_seed = SEED + 1  # phase 4 rebuilds the same u_kn
-    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
-                                torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    u_kn, N_k, fa, _x = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                    torch.Generator(device=dev).manual_seed(flag_seed), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -819,11 +1030,19 @@ def main():
     f_flag, f_adaptive = mbar.f_k.copy(), ref.f_k.copy()
     sigma_asym = res["dDelta_f"][0, 1:].copy()
     flag_walls = dict(init_s=init_s, theta_s=theta_s)
+    # phase 7 reads phase 2's free energies on three states and its
+    # checkpoint
+    sub3 = np.ix_(*[[0, FLAGSHIP_K // 2, FLAGSHIP_K - 1]] * 2)
+    flag_df3, flag_ddf3 = res["Delta_f"][sub3], res["dDelta_f"][sub3]
+    flag_polish = iters
+    ck_dir = tempfile.TemporaryDirectory()
+    ck_path = os.path.join(ck_dir.name, "flagship.npz")
+    checkpoint.save_mbar(mbar, ck_path)
     del u_kn, mbar, ref, res
     torch.cuda.empty_cache()
 
     # ---- phase 3: the many-state slice (split route, Theta on the card)
-    u_kn, N_k, fa = oscillators(torch, SLICE_K, SLICE_NPK, gen, dev)
+    u_kn, N_k, fa, _x = oscillators(torch, SLICE_K, SLICE_NPK, gen, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -891,8 +1110,8 @@ def main():
     mesh = sharding.default_mesh() if n_cards >= 2 else sharding.default_mesh(4, device="cuda:0")
     P = len(mesh.devices)
     mesh_devs = sorted({d.index for d in mesh.devices})
-    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
-                                torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    u_kn, N_k, fa, _x = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                    torch.Generator(device=dev).manual_seed(flag_seed), dev)
     sync_all(torch)
     for i in mesh_devs:
         torch.cuda.reset_peak_memory_stats(i)
@@ -992,8 +1211,8 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 5: the bootstrap at the flagship (dd counts route)
-    u_kn, N_k, fa = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
-                                torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    u_kn, N_k, fa, x_n = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                     torch.Generator(device=dev).manual_seed(flag_seed), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wsum.WSUM_LAUNCHES = 0
@@ -1073,6 +1292,7 @@ def main():
     if serial_launches != int(bis["polish_iterations"].sum()) or serial_launches <= 0:
         fail(f"serial mode launched K1 {serial_launches} times for "
              f"{bis['polish_iterations'].tolist()} polish iterations")
+    boot_mbar = mbar  # phase 7 reuses its replicates
     del uh, ul, mbar, res, counts, direct, fb12, fb7, fs
     torch.cuda.empty_cache()
 
@@ -1205,7 +1425,12 @@ def main():
     if not (idx[0] == 0 and np.all(np.diff(idx) > 0) and idx[-1] < A_t.size
             and abs(len(idx) - A_t.size / g) <= 1.0):
         fail(f"subsample_correlated_data gave {len(idx)} indices for g = {g:.4g}")
-    del u_kn, mbar, log_w, res_svd, res_ew
+    del mbar, log_w, res_svd, res_ew
+    torch.cuda.empty_cache()
+
+    phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, boot_mbar, ck_path)
+    ck_dir.cleanup()
+    del u_kn, x_n, boot_mbar
     torch.cuda.empty_cache()
 
     # ---- the kernels line: launches from each one's main-path run
@@ -1249,7 +1474,7 @@ def main():
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=launches,
         max_abs_err=err[name], ms=times[name][0], plain_ms=times[name][1],
-        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        bound_ms=b[0], bound_by=b[1], library_ms=times[name][2] if len(times[name]) > 2 else None,
     ) for name, source, replaces, launches, b in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
     python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap] [diagnostics]
+                                       [expectations]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -47,6 +48,16 @@ and the 'svd' Theta with its steps (W on the card, ``check_w_normalized``,
 ``MBAR._svd_sigma_v``: the QR of W and the SVD of R); then
 ``torch.linalg.svd`` of W once, the direct factorization the QR route
 stands in for.
+
+``expectations`` measures ``mbar._AUG_STREAM_BYTES``: at (K, samples per
+state) = (128, 8), (512, 4), (1024, 2), (1024, 12) and (1024, 122) (1.05
+MB, 8.4 MB, 16.8 MB, 101 MB and 1.02 GB of u_kn), ``compute_expectations(x)`` and ``compute_entropy_and_enthalpy()`` by the
+materializing and by the streamed branch in turns (materialized, streamed,
+streamed, materialized, after one warm-up of each), with their peak
+memory.  Then, at the flagship, the walls of those two calls and of their
+steps, three times each after one warm-up: pass A alone, pass B (the
+structured Gram pass), the Gram assembly and the rank-nnz Theta, and for
+entropy the three sigma matrices; and one profiler trace of each call.
 """
 
 import json
@@ -62,7 +73,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {"flagship": (1024, 976, True), "slice": (8192, 40, False)}
 
 
-def oscillators(torch, K, npk, dev):
+def oscillators(torch, K, npk, dev, with_x=False):
     gen = torch.Generator(device=dev).manual_seed(1)
     O = torch.linspace(0.0, 5.0, K, dtype=torch.float64, device=dev)
     Kf = torch.linspace(1.0, 3.0, K, dtype=torch.float64, device=dev)
@@ -73,7 +84,7 @@ def oscillators(torch, K, npk, dev):
     step = max(1, 2**26 // K)
     for s in range(0, N, step):
         u[:, s : s + step] = 0.5 * Kf[:, None] * (x[None, s : s + step] - O[:, None]) ** 2
-    return u, [npk] * K
+    return (u, [npk] * K, x) if with_x else (u, [npk] * K)
 
 
 def timed(torch, fn):
@@ -361,12 +372,120 @@ def profile_diagnostics(torch, card):
     torch.cuda.empty_cache()
 
 
+def profile_expectations(torch, card):
+    import numpy as np
+
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch import mbar as tmbar
+    from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization
+
+    saved = tmbar._AUG_STREAM_BYTES
+    branches = {"materialized": 2**62, "streamed": 0}
+    try:
+        for K, npk in ((128, 8), (512, 4), (1024, 2), (1024, 12), (1024, 122)):
+            u, N_k, x = oscillators(torch, K, npk, "cuda", with_x=True)
+            m = MBAR.from_solution(u, N_k, MBAR(u, N_k).f_k)
+            calls = {"expectations": lambda: m.compute_expectations(x),
+                     "entropy": m.compute_entropy_and_enthalpy}
+            walls, peak = {}, {}
+            for call, fn in calls.items():
+                # one warm-up of each branch, then the turns M S S M
+                turns = ("materialized", "streamed") * 2 + ("streamed", "materialized")
+                for i, branch in enumerate(turns):
+                    tmbar._AUG_STREAM_BYTES = branches[branch]
+                    torch.cuda.reset_peak_memory_stats()
+                    wall = timed(torch, fn)[0]
+                    if i >= 2:
+                        walls.setdefault(f"{call}_{branch}_s", []).append(wall)
+                    peak[f"{call}_{branch}"] = torch.cuda.max_memory_allocated()
+            print(json.dumps(dict(config="expectations_route_gate", card=card, K=K, N=K * npk,
+                                  u_kn_bytes=u.nbytes, walls=walls, max_memory_allocated=peak)),
+                  flush=True)
+            del u, m, x
+            torch.cuda.empty_cache()
+    finally:
+        tmbar._AUG_STREAM_BYTES = saved
+
+    # the flagship's two calls and their steps, by the streamed branch
+    K = 1024
+    u, N_k, x = oscillators(torch, K, 976, "cuda", with_x=True)
+    m = MBAR.from_solution(u, N_k, MBAR(u, N_k).f_k)
+    K_ = m.K
+    ident = np.vstack([np.arange(K_), np.arange(K_)])
+    row = np.zeros((2, K_), int)
+    row[0] = np.arange(K_)
+    eps4 = 4.0 * np.finfo(np.float64).eps
+    x_min = float(x.min())
+    x_shift = x_min - abs(eps4 * x_min)
+    a_row = (x - x_shift).reshape(1, -1)
+    u_min = u.amin(dim=1).cpu().numpy()
+    u_shift = u_min - np.abs(eps4 * u_min)
+    u_shift_t = torch.as_tensor(u_shift, device=u.device)
+    N_aug = np.concatenate([m.N_k, np.zeros(2 * K_)])
+    state = {}
+
+    def pass_a(A_n, state_map, a_shift):
+        state["f"] = m._expectations_streamed(A_n, u, state_map, K_, K_, None, False,
+                                              u_ln_alias=True, a_shift=a_shift)[0]
+
+    def pass_b(observable):
+        state["b"] = mbar_gram_normalization(u, m.N_k, m.f_k, observable=observable)
+
+    def theta():
+        f = state["f"]
+        log_C, f_sa = f[K_ : 2 * K_], f[2 * K_ :]
+        M0, _c0, _rows, (M1, M2, _cA) = state["b"]
+        gram = tmbar._assemble_struct_gram(M0, M1, M2, np.exp(log_C - m.f_k),
+                                           np.exp(f_sa + log_C - m.f_k), np.arange(K_))
+        state["theta"] = m._theta_from_gram(gram, N_aug, "svd-ew")
+
+    def sigmas():
+        a = np.exp(-state["f"][2 * K_ :])
+        th = state["theta"]
+        idx = torch.as_tensor(np.concatenate([2 * K_ + np.arange(K_), K_ + np.arange(K_)]),
+                              device=th.device)
+        th2 = th.index_select(0, idx).index_select(1, idx)
+        return [m._ErrorOfDifferences(c) for c in m._entropy_sigmas(th2, a)]
+
+    steps = {
+        "a_compute_expectations_s": lambda: m.compute_expectations(x),
+        "a_pass_a_s": lambda: pass_a(a_row, row, None),
+        "a_pass_b_s": lambda: pass_b(lambda c0, c1, u_c: a_row[0, c0:c1]),
+        "a_assembly_and_theta_s": theta,
+        "f_compute_entropy_and_enthalpy_s": m.compute_entropy_and_enthalpy,
+        "f_pass_a_s": lambda: pass_a(u, ident, u_shift),
+        "f_pass_b_s": lambda: pass_b(lambda c0, c1, u_c: u_c - u_shift_t[:, None]),
+        "f_assembly_and_theta_s": theta,
+        "f_sigmas_s": sigmas,
+    }
+    walls = {name: [] for name in steps}
+    peak = {}
+    for rep in range(4):
+        for name, fn in steps.items():
+            torch.cuda.reset_peak_memory_stats()
+            wall = timed(torch, fn)[0]
+            peak[name] = torch.cuda.max_memory_allocated()
+            if rep:
+                walls[name].append(wall)
+    print(json.dumps(dict(config="expectations", card=card, K=K, N=K * 976, walls=walls,
+                          max_memory_allocated=peak)), flush=True)
+    for name, fn in (("compute_expectations", lambda: m.compute_expectations(x)),
+                     ("compute_entropy_and_enthalpy", m.compute_entropy_and_enthalpy)):
+        unprofiled = sorted(walls["a_compute_expectations_s" if name == "compute_expectations"
+                                  else "f_compute_entropy_and_enthalpy_s"])[1]
+        print(json.dumps(dict(config="expectations", card=card, call=name,
+                              **trace_kernels(torch, fn, unprofiled))), flush=True)
+    del u, m, x, state
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics}
+    extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics,
+             "expectations": profile_expectations}
     names = sys.argv[1:] or [*CONFIGS, *extra]
     unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:

@@ -11,12 +11,17 @@ numpy input on the CUDA card unless ``device="cpu"`` is asked for.
 it nor JAX.
 
 Exported: ``MBAR`` (with its diagnostics: ``Log_W_nk``, ``W_nk``,
-``weights()``, ``compute_effective_sample_number``, ``compute_overlap``),
-the two-state estimators ``bar``, ``bar_overlap``, ``bar_zero``, ``exp``
-and ``exp_gauss``, and the host modules ``timeseries``, ``testsystems``,
-``confidenceintervals`` and ``utils``.  ``FES`` is still to be ported.
+``weights()``, ``compute_effective_sample_number``, ``compute_overlap``;
+and ``compute_expectations``, ``compute_multiple_expectations``,
+``compute_perturbed_free_energies``, ``compute_entropy_and_enthalpy``,
+``compute_covariance_of_sums``), the two-state estimators ``bar``,
+``bar_overlap``, ``bar_zero``, ``exp`` and ``exp_gauss``, the host modules
+``timeseries``, ``testsystems``, ``confidenceintervals`` and ``utils``, and
+``checkpoint`` (``save_mbar``, ``load_mbar_state``, ``resume_mbar``).
+``FES`` is still to be ported.
 """
 
+from pymbar_tpu_torch import checkpoint  # noqa: F401
 from pymbar_tpu_torch import confidenceintervals  # noqa: F401
 from pymbar_tpu_torch import testsystems  # noqa: F401
 from pymbar_tpu_torch import timeseries  # noqa: F401
@@ -35,4 +40,5 @@ __all__ = [
     "testsystems",
     "confidenceintervals",
     "utils",
+    "checkpoint",
 ]

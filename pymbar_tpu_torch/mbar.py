@@ -1,22 +1,27 @@
 """The MBAR estimator class (PyTorch port).
 
 The counterpart of :class:`pymbar_tpu.mbar.MBAR` (reference pymbar 4.x
-mbar.py:64-1988) for the solve, the free-energy differences and the
-diagnostics: the same constructor surface (initialization by zeros, mean
-reduced potential or a BAR chain), result-dictionary schema and uncertainty
-methods None / 'svd-ew' / 'approximate' / 'svd' / 'bootstrap', the weights
-(``Log_W_nk``, ``W_nk``, ``weights()``), the effective sample numbers and
-the overlap, the solve on a 1-D device mesh (``mesh=``) and bootstrap
-replicates on one device (``n_bootstraps=``).  Expectations, entropy and
-the mesh bootstrap are still to be ported; the constructor raises
-:class:`ParameterError` where it would need the mesh bootstrap.
+mbar.py:64-1988): the same constructor surface (initialization by zeros,
+mean reduced potential or a BAR chain), result-dictionary schemas and
+uncertainty methods None / 'svd-ew' / 'approximate' / 'svd' / 'bootstrap';
+the free-energy differences, the weights (``Log_W_nk``, ``W_nk``,
+``weights()``), the effective sample numbers and the overlap; the
+expectations (``compute_expectations``, ``compute_multiple_expectations``,
+``compute_expectations_inner``), the free energies of perturbed states,
+the entropy and enthalpy and the covariance of sums; the solve on a 1-D
+device mesh (``mesh=``) and bootstrap replicates on one device
+(``n_bootstraps=``).  The mesh bootstrap is still to be ported; the
+constructor raises :class:`ParameterError` where it would need it.
 
 ``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
 is, a numpy array goes to ``device`` (default: the CUDA card; without one,
 pass ``device="cpu"``).  Nothing moves between devices on its own.  Theta's
 K x K algebra runs where the Gram is: on the card through the rank-nnz
 form, on the CPU through the dense numpy eigh + pinv; the 'svd' estimator
-factors W on u_kn's device.
+factors W on u_kn's device.  The expectations augment the states on
+u_kn's device as well: below ``_AUG_STREAM_BYTES`` of u_kn they build the
+N x (K + NL + S) log-weights, above it they stream u_kn's column chunks
+through two passes and never form that matrix.
 """
 
 import logging
@@ -25,7 +30,13 @@ import numpy as np
 import torch
 
 from pymbar_tpu_torch import solvers as mbar_solvers
-from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization, mbar_log_W_nk
+from pymbar_tpu_torch.ops.mbar_core import (
+    _col_chunks,
+    _logden_direct,
+    log_denominator_n,
+    mbar_gram_normalization,
+    mbar_log_W_nk,
+)
 from pymbar_tpu_torch.other_estimators import bar
 from pymbar_tpu_torch.parallel.sharding import default_mesh, sharded_solve_mbar_for_all_states
 from pymbar_tpu_torch.solvers import (
@@ -38,9 +49,11 @@ from pymbar_tpu_torch.solvers import (
 from pymbar_tpu_torch.solvers_large import solve_mbar_dd_bootstrap
 from pymbar_tpu_torch.utils import (
     ConvergenceError,
+    DataError,
     ParameterError,
     check_w_normalized,
     kln_to_kn,
+    kn_to_n,
 )
 
 logger = logging.getLogger(__name__)
@@ -54,6 +67,28 @@ __all__ = ["MBAR"]
 # routes are launch-bound and tie, so smaller problems keep the default
 # protocol and its hybr fallback.  Module constant so tests can move it.
 _DD_ROUTE_BYTES = 8 * 2**20
+
+# From this many bytes of u_kn up, compute_expectations_inner streams u_kn's
+# column chunks through the augmented passes instead of building the
+# N x (K + NL + S) log-weights.  Measured on an H100 (PERF.md §5,
+# profiling/torch_profile.py expectations): from 1 MB to 1 GB the streamed
+# branch takes the entropy in 0.35-0.85 of the time, and the expectations
+# in about the same time (within ~3 ms) up to 17 MB and in less above;
+# below 1 MB nothing was measured, and the reference's branch stays.
+# Module constant so tests can move it.
+_AUG_STREAM_BYTES = 2**20
+
+# Collapse the aliased augmented Gram to three K x K Grams when eligible
+# (see _aug_pass_b_struct); module switch so tests can pin the structured
+# assembly against the general augmented Gram.
+_STRUCT_AUG_GRAM = True
+
+# Streamed pass-B forms run: the structured Gram with one shared observable
+# row ("logrow"), with observable row k at state k ("diag"), and the general
+# (K + NL + S)^2 Gram.  Each pass adds one where it runs.
+AUG_B_LOGROW_PASSES = 0
+AUG_B_DIAG_PASSES = 0
+AUG_B_GENERAL_PASSES = 0
 
 
 def bootstrap_counts(bootstrap_rints, n_total):
@@ -101,6 +136,127 @@ def _u_tensor(u_kn, N_k, device):
     if np.ndim(u_kn) == 3:
         u_kn = kln_to_kn(np.asarray(u_kn), N_k=N_k)
     return torch.as_tensor(np.array(u_kn, dtype=np.float64), device=target_device(device))
+
+
+def _host(x):
+    """A tensor as a numpy array (the layout converters are numpy); anything
+    else as it is."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else x
+
+
+def _f64(x, copy=False):
+    """x in float64: a tensor stays a tensor on its device, anything else
+    becomes a numpy array."""
+    if torch.is_tensor(x):
+        return x.detach().to(torch.float64, copy=copy)
+    return np.array(x, dtype=np.float64) if copy else np.asarray(x, dtype=np.float64)
+
+
+def _cols(x, c0, c1, dev):
+    """Columns c0:c1 of a numpy array or tensor as float64 on ``dev``: a
+    numpy input goes to the card one chunk at a time."""
+    return torch.as_tensor(x[..., c0:c1], dtype=torch.float64, device=dev)
+
+
+def _finite(m):
+    return torch.where(torch.isfinite(m), m, 0.0)
+
+
+def _idx_mode(idx, nrows):
+    """How the rows ``idx`` select from ``nrows`` rows: "empty";
+    "identity" (idx == arange(nrows): the rows as they are); "zero" (every
+    idx is 0: row 0 repeated); else "gather"."""
+    idx = np.asarray(idx)
+    if idx.size == 0:
+        return "empty"
+    if idx.size == nrows and np.array_equal(idx, np.arange(nrows)):
+        return "identity"
+    if np.all(idx == 0):
+        return "zero"
+    return "gather"
+
+
+def _rows(x, idx, mode):
+    """x[idx] for an index pattern classified by :func:`_idx_mode`: the rows
+    themselves, a broadcast view of row 0, or ``index_select``, which
+    carries +-inf and NaN as they are."""
+    if mode == "identity":
+        return x
+    if mode == "zero":
+        return x[:1].expand(idx.shape[0], -1)
+    return x.index_select(0, idx)
+
+
+def _aug_a_body(u_c, ul_c, la_c, sampled, N_s, f_s, lidx, lidx_mode, c=None, a_mode="log"):
+    """Pass-A chunk math: for one column chunk, each extra state's and each
+    observable pseudo-state's partial (max, rescaled sum) pair.
+
+    The log-denominator runs over the sampled rows ``sampled`` (None: every
+    row) with their N_s, f_s, so an empty state sets no column max.  Extra
+    state l reduces a_l = -u_l - logden; pseudo-state s reduces
+    la_s + a_{lidx[s]}, where ``la_c`` holds the (S, nc) log observable rows
+    (``a_mode="log"``), or, with ``a_mode="diagmul"``, the raw shifted
+    observable slab A = u - shift of entropy's aliased layout (pseudo-state
+    k with extra state k): exp(log A + a_l - m) = A exp(a_l - m) exactly,
+    so the pseudo-states reuse the extra states' exps under their shift.
+    ``c`` holds optional per-sample counts, which make the sums a bootstrap
+    replicate's over the same columns.
+    """
+    logden = _logden_direct(u_c if sampled is None else u_c.index_select(0, sampled), N_s, f_s)
+    a_l = (-ul_c).sub_(logden[None, :])  # (NL, nc)
+    if a_mode != "diagmul":
+        a_s = la_c + _rows(a_l, lidx, lidx_mode)  # (S, nc)
+    m_l = a_l.amax(dim=1)
+    e_l = a_l.sub_(_finite(m_l)[:, None]).exp_()
+    if a_mode == "diagmul":
+        m_s = m_l
+        e_s = la_c * e_l
+    else:
+        m_s = a_s.amax(dim=1)
+        e_s = a_s.sub_(_finite(m_s)[:, None]).exp_()
+    if c is not None:
+        e_l.mul_(c[None, :])
+        e_s.mul_(c[None, :])
+    return m_l, e_l.sum(dim=1), m_s, e_s.sum(dim=1)
+
+
+def _aug_combine(m, s, m_c, s_c):
+    """Running-max rescaled-sum combine of (max, sum) pairs across chunks
+    (flash-style logsumexp)."""
+    m_new = torch.maximum(m, m_c)
+    safe = _finite(m_new)
+    return m_new, s * torch.exp(m - safe) + s_c * torch.exp(m_c - safe)
+
+
+def _assemble_struct_gram(M0, M1, M2, D_L, E, l_of_s):
+    """The (K + NL + S)^2 augmented Gram of the aliased layouts from the
+    three K x K Grams of the structured pass B, on their device:
+    W_L = diag(D_L) W_0 and W_S = diag(E) (A o W_0)[l_of_s] give
+
+        [[M0,         M0 D_L,        M1s E     ],
+         [D_L M0,     D_L M0 D_L,    D_L M1s E ],
+         [E M1s^T,    E M1s^T D_L,   E M2ss E  ]]
+
+    with M1s = M1[:, l_of_s] and M2ss = M2[l_of_s][:, l_of_s]."""
+    dev = M0.device
+    D_L = torch.as_tensor(D_L, dtype=M0.dtype, device=dev)
+    E = torch.as_tensor(E, dtype=M0.dtype, device=dev)
+    if _idx_mode(l_of_s, M0.shape[0]) == "identity":
+        M1s, M2ss = M1, M2
+    else:
+        lidx = torch.as_tensor(l_of_s, device=dev)
+        M1s = M1.index_select(1, lidx)
+        M2ss = M2.index_select(0, lidx).index_select(1, lidx)
+    G0L = M0 * D_L[None, :]
+    GLL = D_L[:, None] * M0 * D_L[None, :]
+    G0S = M1s * E[None, :]
+    GLS = D_L[:, None] * G0S
+    GSS = E[:, None] * M2ss * E[None, :]
+    return torch.cat([
+        torch.cat([M0, G0L, G0S], dim=1),
+        torch.cat([G0L.T, GLL, GLS], dim=1),
+        torch.cat([G0S.T, GLS.T, GSS], dim=1),
+    ])
 
 
 class MBAR:
@@ -487,13 +643,17 @@ class MBAR:
         self._Log_W_nk = value
         self._Log_W_nk_assigned = True
 
-    def _W_nk_tensor(self):
-        """exp(Log_W_nk) as an (N, K) tensor on u_kn's device.  Computed
-        there (the cached host copy holds the same values, and moving it
-        back would cost more than the pass), unless Log_W_nk was assigned."""
+    def _log_W_nk_tensor(self):
+        """Log_W_nk as a new (N, K) tensor on u_kn's device.  Computed there
+        (the cached host copy holds the same values, and moving it back
+        would cost more than the pass), unless Log_W_nk was assigned."""
         if not self._Log_W_nk_assigned:
-            return mbar_log_W_nk(self.u_kn, self.N_k, self.f_k).exp_()
-        return torch.as_tensor(self._Log_W_nk, dtype=torch.float64, device=self.u_kn.device).exp()
+            return mbar_log_W_nk(self.u_kn, self.N_k, self.f_k)
+        return torch.tensor(self._Log_W_nk, dtype=torch.float64, device=self.u_kn.device)
+
+    def _W_nk_tensor(self):
+        """exp(Log_W_nk) as an (N, K) tensor on u_kn's device."""
+        return self._log_W_nk_tensor().exp_()
 
     @property
     def W_nk(self):
@@ -664,19 +824,877 @@ class MBAR:
             raise ParameterError(f"Method {method} unrecognized.")
         gram, colsum, rowstats = mbar_gram_normalization(self.u_kn, self.N_k, self.f_k)
         self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
-        return self._theta_from_gram(gram, self.N_k, method)
+        return self._theta_from_gram(gram, self.N_k, method).cpu().numpy()
+
+    # -------------------------------------------------------------------------
+    # Expectations
+    # -------------------------------------------------------------------------
+
+    def compute_expectations_inner(
+        self,
+        A_n,
+        u_ln,
+        state_map,
+        uncertainty_method=None,
+        warning_cutoff=1.0e-10,
+        return_theta=False,
+    ):
+        """Augmented-state expectations workhorse (low-level API).
+
+        Augments the state space to ``K + NL + S`` -- the K original states,
+        NL extra states defined by ``u_ln``, and one pseudo-state per
+        observable entry of ``state_map`` -- and evaluates free energies,
+        observables, and the joint covariance over the augmented weights.
+        Observables are shifted positive by ``A_min - 4 eps |A_min|`` so
+        everything runs in log space.
+
+        Parameters
+        ----------
+        A_n : np.ndarray or tensor, shape (n_obs, N)
+            Observable rows referenced by ``state_map[1]``.
+        u_ln : np.ndarray or tensor, shape (NL, N)
+            Reduced potentials of the extra states.
+        state_map : np.ndarray, int, shape (2, S) or (S,)
+            Row 0: which extra state each observable pseudo-state attaches
+            to; row 1: which ``A_n`` row it averages.  A 1-D array means
+            "free energies only" (no observables).
+        uncertainty_method, warning_cutoff, return_theta
+            As in :meth:`compute_expectations`.
+
+        Returns
+        -------
+        dict
+            ``'observables'`` (S,), ``'f'`` (per state_list entry),
+            ``'Theta'`` (block form: S observable rows first, then the
+            state rows), ``'Amin'``, and -- under
+            ``uncertainty_method='bootstrap'`` -- ``'bootstrapped_observables'``
+            / ``'bootstrapped_f'``; numpy arrays.
+
+        Notes
+        -----
+        Everything runs on u_kn's device; numpy inputs go there.  From
+        ``_AUG_STREAM_BYTES`` of ``u_kn`` up (and not for 'svd') the
+        machinery streams over u_kn's column chunks and no N x (K+NL+S)
+        matrix exists.  ``u_ln is self.u_kn`` (and, for entropy,
+        ``A_n is self.u_kn``) is used as an alias of the same tensor, never
+        copied.  Reference: ``pymbar.MBAR.compute_expectations_inner``
+        (pymbar 4.x mbar.py:732-1030).
+        """
+        result_vals = self._expectations_inner(
+            A_n, u_ln, state_map, uncertainty_method, return_theta
+        )
+        if "Theta" in result_vals:
+            result_vals["Theta"] = result_vals["Theta"].cpu().numpy()
+        return result_vals
+
+    def _expectations_inner(self, A_n, u_ln, state_map, uncertainty_method, return_theta):
+        """:meth:`compute_expectations_inner` with Theta as a tensor on the
+        device of the Gram it came from."""
+        logfactor = 4.0 * np.finfo(np.float64).eps
+
+        state_map = np.asarray(state_map)
+        if state_map.ndim < 2:
+            state_list = state_map.copy()
+            state_map = np.zeros([0, 0], int)
+            S = 0
+        else:
+            state_list = state_map[0, :]
+            S = state_map.shape[1]
+
+        # u_ln = self.u_kn (compute_expectations, entropy) is an alias of
+        # the same tensor: detected before any conversion, never copied.
+        u_ln_alias = u_ln is self.u_kn
+        if not u_ln_alias:
+            u_ln = _f64(u_ln)
+            if u_ln.ndim == 1:
+                u_ln = u_ln.reshape(1, -1)
+
+        L_list = np.unique(state_list)
+        NL = len(L_list)
+        stream = (
+            self.u_kn.nbytes >= _AUG_STREAM_BYTES
+            and uncertainty_method != "svd"
+            and (uncertainty_method != "bootstrap" or self.n_bootstraps > 0)
+            # every public caller builds contiguous extra states; anything
+            # else keeps the reference's materializing path
+            and np.array_equal(L_list, np.arange(NL))
+            and u_ln.shape[0] == NL
+        )
+        # Entropy's aliased observable A_n = u_kn (row k at state k): the
+        # streamed passes rebuild each shifted observable chunk from u_kn
+        # itself.  Only for the identity map over every state: the diag
+        # layout pairs row s with state s positionally, so a permuted
+        # state_map[0] must not take it.
+        ident = np.arange(self.K)
+        a_alias = (
+            stream and A_n is self.u_kn and u_ln_alias and S == self.K
+            and np.array_equal(state_map[0], ident) and np.array_equal(state_map[1], ident)
+        )
+        if not a_alias:
+            # the reference shifts A_n in place and restores it
+            # (mbar.py:864-878, :973-975): a copy has the same net effect
+            A_n = _f64(A_n, copy=True)
+            if A_n.ndim == 1:
+                A_n = A_n.reshape(1, -1)
+
+        K = self.K
+        result_vals = dict()
+
+        if S > 0:
+            A_list = np.unique(state_map[1, :])
+            A_min = np.zeros(int(np.max(A_list)) + 1, dtype=np.float64)
+            logfactors = np.zeros(int(np.max(A_list)) + 1, dtype=np.float64)
+        else:
+            A_list = np.zeros(0, dtype=int)
+            A_min = np.zeros(0, dtype=np.float64)
+            logfactors = np.zeros(0, dtype=np.float64)
+
+        if a_alias:
+            # per-row min in one pass on u_kn's device; the shift itself is
+            # applied chunk by chunk inside the streamed passes
+            row_min = self.u_kn.amin(dim=1).cpu().numpy()
+            A_min[A_list] = row_min[A_list]
+            logfactors[A_list] = np.abs(logfactor * A_min[A_list])
+            a_shift = A_min - logfactors
+        else:
+            a_shift = None
+            for i in A_list:
+                A_min[i] = float(A_n[i, :].min())
+                logfactors[i] = np.abs(logfactor * A_min[i])
+                A_n[i, :] = A_n[i, :] - (A_min[i] - logfactors[i])
+        i_of_s = state_map[1, :S].astype(int) if S > 0 else np.zeros(0, int)
+        shift_s = A_min[i_of_s] - logfactors[i_of_s]
+
+        if stream:
+            f_aug, Theta_ij, boot = self._expectations_streamed(
+                A_n, u_ln, state_map, S, NL, uncertainty_method, return_theta,
+                bootstrap=uncertainty_method == "bootstrap",
+                u_ln_alias=u_ln_alias, a_shift=a_shift,
+            )
+        else:
+            f_aug, Theta_ij, boot = self._expectations_materialized(
+                A_n, u_ln, state_map, S, L_list, uncertainty_method, return_theta,
+            )
+
+        if S > 0:
+            result_vals["observables"] = np.exp(-f_aug[K + NL : K + NL + S]) + shift_s
+        result_vals["f"] = f_aug[K + state_list]
+        if boot is not None:
+            A_boot, f_boot = boot
+            result_vals["bootstrapped_observables"] = (
+                A_boot + shift_s[None, :] if S > 0 else A_boot
+            )
+            result_vals["bootstrapped_f"] = f_boot[:, K + state_list]
+        if return_theta:
+            # block form: S observable rows first, then the state_list rows
+            # (reference mbar.py:979-1000)
+            idx = torch.as_tensor(
+                np.concatenate((K + NL + np.arange(S), K + state_list)), device=Theta_ij.device
+            )
+            result_vals["Theta"] = Theta_ij.index_select(0, idx).index_select(1, idx)
+            if S > 0:
+                result_vals["Amin"] = shift_s
+        return result_vals
+
+    def _expectations_materialized(self, A_n, u_ln, state_map, S, L_list, method, need_theta):
+        """The reference's branch (mbar.py:838-1000) on u_kn's device: the
+        N x (K + NL + S) log-weights Log_W, each extra state's and
+        pseudo-state's free energy from a logsumexp over its column, Theta
+        from exp(Log_W) by :meth:`_asymptotic_theta`; with
+        ``method="bootstrap"`` the same again on each replicate's resampled
+        columns ``u_kn[:, rints]`` at its f_k.  Returns (f_aug (msize,),
+        Theta tensor or None, boot or None) with boot = (raw bootstrapped
+        observables (B, S), bootstrapped f_aug (B, msize))."""
+        K, N = self.K, self.N
+        NL = len(L_list)
+        msize = K + NL + S
+        dev = self.u_kn.device
+        l_of_s = state_map[0, :S].astype(int) if S > 0 else np.zeros(0, int)
+        i_of_s = state_map[1, :S].astype(int) if S > 0 else np.zeros(0, int)
+        u_ln = torch.as_tensor(u_ln, dtype=torch.float64, device=dev)
+        u_l = _rows(u_ln, torch.as_tensor(L_list, device=dev), _idx_mode(L_list, u_ln.shape[0]))
+        if S > 0:
+            log_a = _rows(torch.log(torch.as_tensor(A_n, dtype=torch.float64, device=dev)),
+                          torch.as_tensor(i_of_s, device=dev), _idx_mode(i_of_s, A_n.shape[0]))
+        sws = np.where(self.N_k > 0)[0]
+        sampled = torch.as_tensor(sws, device=dev)
+        N_aug = np.zeros(msize, np.int64)
+        N_aug[:K] = self.N_k
+        f_aug = np.zeros(msize)
+        Log_W = torch.zeros((N, msize), dtype=torch.float64, device=dev)
+        cols_l = torch.as_tensor(K + L_list, device=dev)
+        cols_s = torch.as_tensor(K + l_of_s, device=dev)
+        n_total = self.n_bootstraps + 1 if method == "bootstrap" else 1
+        boot_rows = np.zeros((n_total - 1, msize))
+        Theta_ij = None
+
+        for n in range(n_total):
+            if n == 0:
+                f_aug[:K] = self.f_k
+                u_kn = self.u_kn
+                Log_W[:, :K] = self._log_W_nk_tensor()
+                ri = None
+            else:
+                f_aug[:K] = self.f_k_boots[n - 1, :]
+                ri = torch.as_tensor(self.bootstrap_rints[n - 1], device=dev)
+                u_kn = self.u_kn.index_select(1, ri)
+                Log_W[:, :K] = mbar_log_W_nk(u_kn, self.N_k, f_aug[:K])
+            # per-sample mixture log-normalizer over the sampled states only
+            # (Eqns 13-14 of the MBAR paper)
+            logden = log_denominator_n(
+                u_kn.index_select(0, sampled), self.N_k[sws], f_aug[:K][sws]
+            )
+            u_lr = u_l if ri is None else u_l.index_select(1, ri)
+            log_C = -torch.logsumexp(-u_lr - logden[None, :], dim=1)
+            Log_W[:, cols_l] = (log_C[:, None] - u_lr - logden[None, :]).T
+            f_aug[K + L_list] = log_C.cpu().numpy()
+            if S > 0:
+                la = log_a if ri is None else log_a.index_select(1, ri)
+                if L_list.max() < NL:
+                    lw = la.T + Log_W[:, cols_s]
+                    f_sa = -torch.logsumexp(lw, dim=0)
+                    Log_W[:, K + NL :] = lw + f_sa[None, :]
+                    f_aug[K + NL :] = f_sa.cpu().numpy()
+                else:
+                    # extra states outside arange(NL) share columns with the
+                    # pseudo-states: keep the reference's order, one by one
+                    for s in range(S):
+                        lw = la[s] + Log_W[:, K + l_of_s[s]]
+                        f_s = -torch.logsumexp(lw, dim=0)
+                        Log_W[:, K + NL + s] = lw + f_s
+                        f_aug[K + NL + s] = float(f_s)
+            if n == 0:
+                if need_theta:
+                    Theta_ij = self._asymptotic_theta(Log_W.exp(), N_aug, method=method)
+                f_out = f_aug.copy()
+            else:
+                boot_rows[n - 1] = f_aug
+        boot = None
+        if method == "bootstrap":
+            boot = (np.exp(-boot_rows[:, K + NL :]), boot_rows)
+        return f_out, Theta_ij, boot
+
+    def _expectations_streamed(
+        self, A_n, u_ln, state_map, S, NL, method, need_theta,
+        bootstrap=False, u_ln_alias=False, a_shift=None,
+    ):
+        """Augmented-state expectations without the N x (K + NL + S) matrix.
+
+        The algebra of :meth:`_expectations_materialized` in two passes over
+        u_kn's column chunks (``mbar_core._col_chunks``) on its device; a
+        numpy ``u_ln`` or ``A_n`` goes there one chunk at a time:
+
+        * pass A (:func:`_aug_a_body`) accumulates each extra state's log
+          normalizer log C_l = -logsumexp_n(-u_ln[l] - logden_n) and each
+          pseudo-state's logsumexp_n(log A + (-u_l - logden)) as running
+          (max, rescaled sum) pairs;
+        * pass B (only when a covariance is asked for) rides
+          :func:`mbar_gram_normalization`'s chunk loop: the three K x K
+          Grams of the structured form (u_ln aliasing u_kn with one shared
+          observable row, or observable row k at state k), assembled by
+          :func:`_assemble_struct_gram`, else the general (K + NL + S)^2
+          Gram of the appended extra-state and pseudo-state rows; with the
+          column sums and the row check.
+
+        ``a_shift`` set means A_n is u_kn itself (entropy's alias): each
+        observable chunk is u_c - a_shift.  With ``bootstrap=True`` pass A
+        runs again once per replicate, weighted by its resample counts and
+        at its f_k: no resampled matrix is gathered.  Returns (f_aug
+        (msize,), Theta tensor or None, boot or None) with boot = (raw
+        bootstrapped observables (B, S), bootstrapped f_aug (B, msize)).
+        """
+        global AUG_B_LOGROW_PASSES, AUG_B_DIAG_PASSES, AUG_B_GENERAL_PASSES
+
+        K = self.K
+        msize = K + NL + S
+        dev = self.u_kn.device
+        a_alias = a_shift is not None
+        sws = np.where(self.N_k > 0)[0]
+        sampled = None if len(sws) == K else torch.as_tensor(sws, device=dev)
+        N_s = torch.as_tensor(self.N_k[sws], dtype=torch.float64, device=dev)
+        l_of_s = state_map[0, :S].astype(int) if S > 0 else np.zeros(0, int)
+        i_of_s = state_map[1, :S].astype(int) if S > 0 else np.zeros(0, int)
+        lidx = torch.as_tensor(l_of_s, device=dev)
+        lidx_mode = _idx_mode(l_of_s, NL)
+        n_obs = int(A_n.shape[0]) if S > 0 else 0
+        iofs = torch.as_tensor(i_of_s, device=dev)
+        iofs_mode = _idx_mode(i_of_s, n_obs)
+        if a_alias:
+            shift = torch.as_tensor(a_shift, dtype=torch.float64, device=dev)
+        chunks = _col_chunks(self.u_kn)
+
+        def u_ln_cols(u_c, c0, c1):
+            return u_c if u_ln_alias else _cols(u_ln, c0, c1, dev)
+
+        def log_obs(c0, c1):
+            """The chunk's (S, nc) log observable rows (broadcast views where
+            the rows repeat)."""
+            if S == 0:
+                return torch.empty((0, c1 - c0), dtype=torch.float64, device=dev)
+            return _rows(torch.log(_cols(A_n, c0, c1, dev)), iofs, iofs_mode)
+
+        def run_pass_a(f_k, counts=None):
+            """(log_C (NL,), f_sa (S,)) at the states' free energies f_k,
+            optionally counts-weighted: one pass over u_kn."""
+            f_s = torch.as_tensor(f_k[sws], dtype=torch.float64, device=dev)
+            m_l = torch.full((NL,), -torch.inf, dtype=torch.float64, device=dev)
+            s_l = torch.zeros(NL, dtype=torch.float64, device=dev)
+            m_s = torch.full((S,), -torch.inf, dtype=torch.float64, device=dev)
+            s_s = torch.zeros(S, dtype=torch.float64, device=dev)
+            for c0, c1 in chunks:
+                u_c = self.u_kn[:, c0:c1]
+                ml, sl, ms, ss = _aug_a_body(
+                    u_c, u_ln_cols(u_c, c0, c1),
+                    u_c - shift[:, None] if a_alias else log_obs(c0, c1),
+                    sampled, N_s, f_s, lidx, lidx_mode,
+                    None if counts is None else counts[c0:c1],
+                    "diagmul" if a_alias else "log",
+                )
+                m_l, s_l = _aug_combine(m_l, s_l, ml, sl)
+                m_s, s_s = _aug_combine(m_s, s_s, ms, ss)
+            m_l, s_l, m_s, s_s = (t.cpu().numpy() for t in (m_l, s_l, m_s, s_s))
+            with np.errstate(divide="ignore"):
+                log_C = -(np.log(s_l) + m_l)
+                R_s = np.log(s_s) + m_s
+            return log_C, (-(log_C[l_of_s] + R_s) if S > 0 else np.zeros(0))
+
+        log_C, f_sa = run_pass_a(self.f_k)
+        f_aug = np.concatenate([self.f_k, log_C, f_sa])
+
+        boot = None
+        if bootstrap:
+            counts = bootstrap_counts(self.bootstrap_rints, self.N)
+            boot_rows = np.zeros((self.n_bootstraps, msize))
+            for b in range(self.n_bootstraps):
+                c_b = torch.as_tensor(counts[b].astype(np.float32), device=dev).double()
+                logC_b, f_sa_b = run_pass_a(self.f_k_boots[b], c_b)
+                boot_rows[b] = np.concatenate([self.f_k_boots[b], logC_b, f_sa_b])
+            boot = (np.exp(-boot_rows[:, K + NL :]), boot_rows)
+
+        if not need_theta:
+            return f_aug, None, boot
+
+        # ---- pass B: augmented Gram + normalization aggregates
+        row0_b = (
+            _STRUCT_AUG_GRAM and u_ln_alias and S > 0 and NL == K and not a_alias
+            and iofs_mode == "zero"
+        )
+        diag_b = (
+            _STRUCT_AUG_GRAM and u_ln_alias and S == K and NL == K and not row0_b
+            and lidx_mode == "identity" and (a_alias or iofs_mode == "identity")
+        )
+        if row0_b or diag_b:
+            if row0_b:
+                AUG_B_LOGROW_PASSES += 1
+
+                def observable(c0, c1, u_c):
+                    return _cols(A_n[0], c0, c1, dev)
+            else:
+                AUG_B_DIAG_PASSES += 1
+
+                def observable(c0, c1, u_c):
+                    return u_c - shift[:, None] if a_alias else _cols(A_n, c0, c1, dev)
+
+            M0, c0s, rowstats, (M1, M2, cAs) = mbar_gram_normalization(
+                self.u_kn, self.N_k, self.f_k, sampled=sampled, observable=observable
+            )
+            # exact f64 diagonal scalings: W_L = diag(D_L) W_0 and
+            # W_S = diag(E) (A o W_0)[l_of_s]
+            D_L = np.exp(log_C - self.f_k)
+            E = np.exp(f_sa + log_C[l_of_s] - self.f_k[l_of_s])
+            gram = _assemble_struct_gram(M0, M1, M2, D_L, E, l_of_s)
+            c0s, cAs = c0s.cpu().numpy(), cAs.cpu().numpy()
+            colsum = np.concatenate([c0s, D_L * c0s, E * cAs[l_of_s]])
+        else:
+            AUG_B_GENERAL_PASSES += 1
+            log_c = torch.as_tensor(log_C, device=dev)
+            # pseudo-state rows: (f_sa + log C_l) + log A - u_l - logden
+            obs_shift = torch.as_tensor(f_sa + log_C[l_of_s], device=dev)
+
+            def extra_rows(c0, c1, u_c, logden):
+                ul_c = u_ln_cols(u_c, c0, c1)
+                rows = [log_c[:, None] - ul_c - logden[None, :]]
+                if S > 0:
+                    la = torch.log(u_c - shift[:, None]) if a_alias else log_obs(c0, c1)
+                    rows.append(obs_shift[:, None] + la - _rows(ul_c, lidx, lidx_mode)
+                                - logden[None, :])
+                return torch.cat(rows).exp_()
+
+            gram, colsum, rowstats = mbar_gram_normalization(
+                self.u_kn, self.N_k, self.f_k, sampled=sampled, extra_rows=extra_rows
+            )
+            colsum = colsum.cpu().numpy()
+
+        self._check_normalized_aggregates(colsum, rowstats)
+        if method == "approximate":
+            return f_aug, gram, boot
+        # default / svd-ew (the reference maps 'bootstrap' here too)
+        N_aug = np.zeros(msize)
+        N_aug[:K] = self.N_k
+        return f_aug, self._theta_from_gram(gram, N_aug, "svd-ew"), boot
+
+    def compute_covariance_of_sums(self, d_ij, K, a):
+        """Uncertainty of weighted sums of free-energy differences.
+
+        For ``n`` chunks of ``K`` states stacked into one estimator,
+        computes ``sigma[i, j] = sqrt(var(sum_k a_k (f_{i,k} - f_{j,k})))``
+        from the pairwise standard deviations ``d_ij`` of the stacked
+        states -- e.g. the uncertainty of a heat-capacity-style linear
+        combination across temperature chunks.
+
+        Parameters
+        ----------
+        d_ij : np.ndarray, shape (>= n*K, >= n*K)
+            Pairwise standard deviations of the stacked free energies (as
+            returned in ``dDelta_f`` by a stacked-state MBAR).
+        K : int
+            States per chunk.
+        a : array_like, shape (n,)
+            Weight of each chunk in the sum.
+
+        Returns
+        -------
+        np.ndarray, shape (K, K)
+            The combined standard deviations.
+
+        Notes
+        -----
+        Numpy on the host.  Vectorized einsum over (n, n, K, K) covariance
+        blocks in place of the reference's quadruple loop:
+        ``pymbar.MBAR.compute_covariance_of_sums`` (pymbar 4.x
+        mbar.py:1033-1121).
+        """
+        a = np.asarray(a, dtype=np.float64)
+        var_ij = np.square(np.asarray(_host(d_ij)))
+        n = len(a)
+
+        # blocks[k, l, i, j] = var_ij[i + k*K, j + l*K].  Rows/cols beyond
+        # n*K are ignored, as the reference's index loops never touch them.
+        var_ij = var_ij[: n * K, : n * K]
+        blocks = var_ij.reshape(n, K, n, K).transpose(0, 2, 1, 3)
+        # Single terms: sum_k a_k^2 var(f_i - f_j) within chunk k.
+        d2 = np.einsum("k,kkij->ij", a**2, blocks)
+        # Cross terms:
+        #   a_k a_l [-var(i_k,i_l) + var(i_k,j_l) + var(j_k,i_l) - var(j_k,j_l)]
+        diag = blocks.diagonal(axis1=2, axis2=3)  # [k, l, i] = var(i_k, i_l)
+        term = (
+            -diag[:, :, :, None]  # var(i_k, i_l), broadcast over j
+            + blocks  # var(i_k, j_l)
+            + blocks.transpose(0, 1, 3, 2)  # var(j_k, i_l)
+            - diag[:, :, None, :]  # var(j_k, j_l), broadcast over i
+        )
+        d2 += np.einsum("k,l,klij->ij", a, a, term)
+        return np.sqrt(d2)
+
+    def compute_expectations(
+        self,
+        A_n,
+        u_kn=None,
+        output="averages",
+        state_dependent=False,
+        compute_uncertainty=True,
+        uncertainty_method=None,
+        warning_cutoff=1.0e-10,
+        return_theta=False,
+    ):
+        """Equilibrium expectation of one observable at every state.
+
+        Parameters
+        ----------
+        A_n : np.ndarray or tensor, shape (N,), (K, N_max) or (N, K)
+            The observable per sample.  With ``state_dependent=True``,
+            ``A_n[k, n]`` gives the observable's value in state ``k`` (e.g.
+            the potential energy itself).
+        u_kn : np.ndarray or tensor, optional
+            Alternative reduced potentials to evaluate at (defaults to the
+            constructor's matrix, used as it is); accepts kn, n, or kln
+            layouts.
+        output : {'averages', 'differences'}, optional
+            'averages' returns per-state vectors; 'differences' returns
+            (K, K) matrices of pairwise differences.
+        state_dependent : bool, optional, default False
+            Whether the observable's definition varies by state.
+        compute_uncertainty : bool, optional, default True
+        uncertainty_method : {None, 'approximate', 'svd', 'svd-ew', 'bootstrap'}, optional
+            As in :meth:`compute_free_energy_differences`.
+        warning_cutoff : float, optional, default 1.0e-10
+        return_theta : bool, optional, default False
+
+        Returns
+        -------
+        dict
+            ``'mu'`` : expectations (K,) or (K, K); ``'sigma'`` :
+            uncertainties (same shape, if ``compute_uncertainty``);
+            ``'Theta'`` : covariance of the augmented observables (if
+            ``return_theta``); numpy arrays.
+
+        Notes
+        -----
+        Observables are shifted positive (``A_min - 4 eps |A_min|``) so the
+        whole computation stays in log space; from ``_AUG_STREAM_BYTES`` of
+        ``u_kn`` up the augmented-state machinery streams over sample
+        chunks.  Reference: ``pymbar.MBAR.compute_expectations``
+        (pymbar 4.x mbar.py:1124-1312) -- with the JAX package's fix that
+        ``return_theta=True`` without uncertainties does not crash.
+        """
+        if uncertainty_method == "bootstrap" and (
+            self.n_bootstraps is None or self.n_bootstraps <= 0
+        ):
+            raise ParameterError(
+                "Cannot request bootstrap sampling of expectations without any bootstraps."
+            )
+
+        dims = len(np.shape(A_n))
+        if dims > 2:
+            logger.warning(
+                "dim=3 for (state_dependent==True) matrices for observables "
+                "and dim=2 for (state_dependent==False) observables are "
+                "deprecated; we suggest you convert to NxK form instead of "
+                "NxKxK form."
+            )
+
+        if (dims == 2 and not state_dependent) or (dims == 3 and state_dependent):
+            A_n = (kn_to_n if dims == 2 else kln_to_kn)(_host(A_n), N_k=self.N_k)
+            if u_kn is not None:
+                if len(np.shape(u_kn)) == 3:
+                    u_kn = kln_to_kn(_host(u_kn), N_k=self.N_k)
+                elif len(np.shape(u_kn)) == 2:
+                    u_kn = kn_to_n(_host(u_kn), N_k=self.N_k)
+
+        if u_kn is None:
+            u_kn = self.u_kn
+
+        ushape = np.shape(u_kn)
+        K = 1 if len(ushape) == 1 else ushape[0]
+
+        state_map = np.zeros([2, K], int)
+        state_map[0, :] = np.arange(K)
+        if state_dependent:
+            state_map[1, :] = np.arange(K)
+
+        inner_results = self._expectations_inner(
+            A_n, u_kn, state_map, uncertainty_method,
+            # return_theta alone must also produce Theta (the reference asks
+            # the inner call only for compute_uncertainty, mbar.py:1257-1262,
+            # and crashes on return_theta without uncertainties).
+            compute_uncertainty or return_theta,
+        )
+
+        result_vals = dict()
+        Theta = covA_ij = None
+        if (compute_uncertainty and uncertainty_method != "bootstrap") or return_theta:
+            # sandwich Theta with the shifted observables: covariances of the
+            # observables themselves (reference mbar.py:1267-1281)
+            Theta = self._sandwich(inner_results)
+            covA_ij = (
+                Theta[0:K, 0:K]
+                + Theta[K : 2 * K, K : 2 * K]
+                - Theta[0:K, K : 2 * K]
+                - Theta[K : 2 * K, 0:K]
+            )
+
+        if output == "averages":
+            result_vals["mu"] = inner_results["observables"]
+            if compute_uncertainty:
+                if uncertainty_method == "bootstrap":
+                    result_vals["sigma"] = np.std(
+                        inner_results["bootstrapped_observables"], axis=0
+                    )
+                else:
+                    result_vals["sigma"] = torch.sqrt(covA_ij.diagonal()).cpu().numpy()
+
+        if output == "differences":
+            A_im = inner_results["observables"]
+            result_vals["mu"] = A_im - np.vstack(A_im)
+            if compute_uncertainty:
+                if uncertainty_method == "bootstrap":
+                    boots = inner_results["bootstrapped_observables"]
+                    result_vals["sigma"] = np.std(boots[:, None, :] - boots[:, :, None], axis=0)
+                else:
+                    result_vals["sigma"] = self._ErrorOfDifferences(
+                        covA_ij, warning_cutoff=warning_cutoff
+                    )
+
+        if return_theta:
+            result_vals["Theta"] = Theta.cpu().numpy()
+
+        return result_vals
+
+    @staticmethod
+    def _sandwich(inner_results):
+        """diag(d) Theta diag(d) on Theta's device, with d the shifted
+        observables twice over (reference mbar.py:1267-1281)."""
+        Th = inner_results["Theta"]
+        a = inner_results["observables"] - inner_results["Amin"]
+        d = torch.as_tensor(np.concatenate([a, a]), device=Th.device)
+        return d[:, None] * Th * d[None, :]
+
+    def compute_multiple_expectations(
+        self,
+        A_in,
+        u_n,
+        compute_uncertainty=True,
+        compute_covariance=False,
+        uncertainty_method=None,
+        warning_cutoff=1.0e-10,
+        return_theta=False,
+    ):
+        """Expectations of several observables at one (possibly new) state.
+
+        Parameters
+        ----------
+        A_in : np.ndarray or tensor, shape (I, N) or (I, K, N_max)
+            ``I`` observables evaluated at every sample.
+        u_n : np.ndarray or tensor, shape (N,) or (K, N_max)
+            Reduced potential of the single target state.
+        compute_uncertainty : bool, optional, default True
+        compute_covariance : bool, optional, default False
+            Also return the I x I covariance matrix of the observables.
+        uncertainty_method : {None, 'approximate', 'svd', 'svd-ew', 'bootstrap'}, optional
+        warning_cutoff : float, optional, default 1.0e-10
+        return_theta : bool, optional, default False
+
+        Returns
+        -------
+        dict
+            ``'mu'`` : (I,) expectations at the target state; ``'sigma'`` :
+            (I,) uncertainties; ``'covariances'`` : (I, I) covariance;
+            ``'Theta'`` : augmented covariance -- each as requested, as
+            numpy arrays.
+
+        Notes
+        -----
+        Reference: ``pymbar.MBAR.compute_multiple_expectations``
+        (pymbar 4.x mbar.py:1315-1439), including its
+        ``compute_uncertainty != "bootstrap"`` comparison quirk.
+        """
+        if not torch.is_tensor(A_in):
+            A_in = np.asarray(A_in)
+        I = A_in.shape[0]
+
+        if len(A_in.shape) == 3:
+            A_3 = _host(A_in)
+            A_in = np.zeros([I, self.N], np.float64)
+            for i in range(I):
+                A_in[i, :] = kn_to_n(A_3[i, :, :], N_k=self.N_k)
+
+        if len(np.shape(u_n)) == 2:
+            u_n = kn_to_n(_host(u_n), N_k=self.N_k)
+
+        state_map = np.zeros([2, I], int)
+        state_map[1, :] = np.arange(I)
+
+        inner_results = self._expectations_inner(
+            A_in, u_n, state_map, uncertainty_method,
+            compute_uncertainty or compute_covariance or return_theta,
+        )
+        result_vals = dict()
+        result_vals["mu"] = inner_results["observables"]
+
+        if (
+            (compute_uncertainty or compute_covariance)
+            and compute_uncertainty != "bootstrap"
+        ) or return_theta:
+            Theta = self._sandwich(inner_results)
+
+            if compute_uncertainty:
+                covA_ij = (
+                    Theta[0:I, 0:I]
+                    + Theta[I : 2 * I, I : 2 * I]
+                    - Theta[0:I, I : 2 * I]
+                    - Theta[I : 2 * I, 0:I]
+                )
+                result_vals["sigma"] = torch.sqrt(covA_ij.diagonal()).cpu().numpy()
+
+            if compute_covariance:
+                result_vals["covariances"] = inner_results["Theta"][0:I, 0:I].cpu().numpy()
+
+            if return_theta:
+                result_vals["Theta"] = Theta.cpu().numpy()
+
+        if uncertainty_method == "bootstrap":
+            if compute_uncertainty:
+                result_vals["sigma"] = np.std(
+                    inner_results["bootstrapped_observables"], axis=0
+                )
+            if compute_covariance:
+                result_vals["covariances"] = np.cov(
+                    inner_results["bootstrapped_observables"].T
+                )
+        return result_vals
+
+    def compute_perturbed_free_energies(
+        self,
+        u_ln,
+        compute_uncertainty=True,
+        uncertainty_method=None,
+        warning_cutoff=1.0e-10,
+    ):
+        """Free energy differences between L perturbed (unsampled) states.
+
+        Parameters
+        ----------
+        u_ln : np.ndarray or tensor, shape (L, N) or (L, K, N_max)
+            Reduced potentials of every original sample evaluated in each of
+            the L new states (all N original samples are required).
+        compute_uncertainty : bool, optional, default True
+        uncertainty_method : {None, 'approximate', 'svd', 'svd-ew', 'bootstrap'}, optional
+        warning_cutoff : float, optional, default 1.0e-10
+
+        Returns
+        -------
+        dict
+            ``'Delta_f'`` : (L, L) free energy differences between the new
+            states; ``'dDelta_f'`` : (L, L) uncertainties (if requested).
+
+        Raises
+        ------
+        DataError
+            If ``u_ln`` has fewer samples than the estimator was built on.
+
+        Notes
+        -----
+        Reference: ``pymbar.MBAR.compute_perturbed_free_energies``
+        (pymbar 4.x mbar.py:1442-1520).
+        """
+        if len(np.shape(u_ln)) == 3:
+            u_ln = kln_to_kn(_host(u_ln), N_k=self.N_k)
+        if not torch.is_tensor(u_ln):
+            u_ln = np.asarray(u_ln)
+        L, N = u_ln.shape
+
+        if N < self.N:
+            raise DataError(
+                "There seems to be too few samples in u_kn. You must evaluate "
+                "at the new potential with all of the samples used originally."
+            )
+
+        inner_results = self._expectations_inner(
+            np.array([0]), u_ln, np.arange(L), uncertainty_method, compute_uncertainty
+        )
+
+        f_k = inner_results["f"]
+        result_vals = dict()
+        result_vals["Delta_f"] = f_k - np.vstack(f_k)
+
+        if compute_uncertainty:
+            if uncertainty_method == "bootstrap":
+                result_vals["dDelta_f"] = np.std(inner_results["bootstrapped_f"], axis=0)
+            else:
+                result_vals["dDelta_f"] = self._ErrorOfDifferences(
+                    inner_results["Theta"], warning_cutoff=warning_cutoff
+                )
+
+        return result_vals
+
+    def compute_entropy_and_enthalpy(
+        self, u_kn=None, uncertainty_method=None, verbose=False, warning_cutoff=1.0e-10
+    ):
+        """Decompose free energy differences into enthalpy and entropy.
+
+        Computes ``Delta_u`` (differences of average reduced potential) and
+        ``Delta_s = Delta_u - Delta_f`` with the 3K x 3K covariance algebra
+        for their uncertainties.
+
+        Parameters
+        ----------
+        u_kn : np.ndarray or tensor, optional
+            Reduced potentials to average (defaults to the constructor's
+            matrix, used as it is: never copied; kln layouts accepted).
+        uncertainty_method : {None, 'approximate', 'svd', 'svd-ew', 'bootstrap'}, optional
+        verbose : bool, optional, default False
+        warning_cutoff : float, optional, default 1.0e-10
+
+        Returns
+        -------
+        dict
+            ``'Delta_f'``/``'dDelta_f'``, ``'Delta_u'``/``'dDelta_u'``,
+            ``'Delta_s'``/``'dDelta_s'`` -- each a (K, K) numpy array.
+
+        Notes
+        -----
+        The three sigma matrices come from the blocks of the (2K, 2K)
+        Theta in f64 on its device (:meth:`_entropy_sigmas`).  Reference:
+        ``pymbar.MBAR.compute_entropy_and_enthalpy`` (pymbar 4.x
+        mbar.py:1524-1681).
+        """
+        if verbose:
+            logger.info("Computing average energy and entropy by MBAR.")
+
+        if len(np.shape(u_kn)) == 3:
+            u_kn = kln_to_kn(_host(u_kn), N_k=self.N_k)
+        if u_kn is None:
+            u_kn = self.u_kn
+
+        K, N = np.shape(u_kn)
+        state_map = np.vstack([np.arange(K), np.arange(K)])
+        # A_n is u_kn itself: the inner call copies it where it must, and
+        # streams the alias of self.u_kn without a copy
+        inner_results = self._expectations_inner(
+            u_kn, u_kn, state_map, uncertainty_method, True
+        )
+
+        result_vals = dict()
+        f_k = inner_results["f"]
+        result_vals["Delta_f"] = f_k - np.vstack(f_k)
+        u_k = inner_results["observables"]
+        result_vals["Delta_u"] = u_k - np.vstack(u_k)
+        s_k = u_k - f_k
+        result_vals["Delta_s"] = s_k - np.vstack(s_k)
+
+        if uncertainty_method == "bootstrap":
+            fb = self.f_k_boots
+            result_vals["dDelta_f"] = np.std(fb[:, None, :] - fb[:, :, None], axis=0)
+            ub = inner_results["bootstrapped_observables"]
+            result_vals["dDelta_u"] = np.std(ub[:, None, :] - ub[:, :, None], axis=0)
+            sb = ub - fb
+            result_vals["dDelta_s"] = np.std(sb[:, None, :] - sb[:, :, None], axis=0)
+        else:
+            a = inner_results["observables"] - inner_results["Amin"]
+            for name, cov in zip(("dDelta_f", "dDelta_u", "dDelta_s"),
+                                 self._entropy_sigmas(inner_results["Theta"], a)):
+                result_vals[name] = self._ErrorOfDifferences(cov, warning_cutoff=warning_cutoff)
+
+        return result_vals
+
+    @staticmethod
+    def _entropy_sigmas(Th2, a):
+        """The covariances of f, u and s from the (2K, 2K) augmented Theta's
+        blocks (observables first, then the free energies), in f64 on
+        Th2's device.  The reference assembles a 3K x 3K Theta whose third
+        block copies the free energies unscaled and sandwiches it by
+        diag([a, a, 1]) (mbar.py:1600-1610); with S(X) = diag(a) X diag(a):
+
+        * covf = T_ff
+        * covu = S(T_AA) + S(T_ff) - S(T_Af) - S(T_fA)
+        * covs = covu + T_ff + a o T_Af + T_fA o a - a o T_ff - T_ff o a
+
+        (row scaling on the left of o, column scaling on the right), summed
+        in the reference's order."""
+        K = Th2.shape[0] // 2
+        a = torch.as_tensor(a, device=Th2.device)
+        TAA, TAf = Th2[:K, :K], Th2[:K, K:]
+        TfA, Tff = Th2[K:, :K], Th2[K:, K:]
+
+        def S(X):
+            return a[:, None] * X * a[None, :]
+
+        covu = S(TAA) + S(Tff) - S(TAf) - S(TfA)
+        covs = (covu + Tff + a[:, None] * TAf + TfA * a[None, :]
+                - a[:, None] * Tff - Tff * a[None, :])
+        return Tff, covu, covs
 
     @classmethod
     def _theta_from_gram(cls, gram, N_k, method):
-        """Theta (numpy) from the K x K Gram W^T W for 'approximate' (the
-        Gram itself) or 'svd-ew': on a CUDA Gram by the rank-nnz form
-        (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
-        accelerator; on a CPU Gram by the dense numpy path."""
+        """Theta, a tensor on the Gram's device, from the Gram W^T W for
+        'approximate' (the Gram itself) or 'svd-ew': on a CUDA Gram by the
+        rank-nnz form (:meth:`_theta_svd_ew_lowrank`), as the JAX package
+        does on its accelerator; on a CPU Gram by the dense numpy path."""
         if method == "approximate":
-            return gram.cpu().numpy()
+            return gram
         if gram.is_cuda:
-            return cls._theta_svd_ew_lowrank(gram, N_k).cpu().numpy()
-        return cls._theta_svd_ew_from_gram(gram.numpy(), N_k)
+            return cls._theta_svd_ew_lowrank(gram, N_k)
+        return torch.from_numpy(cls._theta_svd_ew_from_gram(gram.numpy(), N_k))
 
     @staticmethod
     def _svd_sigma_v(W):
@@ -706,6 +1724,11 @@ class MBAR:
         W^T W is one matmul on W's device.  'svd' needs only Sigma and V of
         W, from :meth:`_svd_sigma_v`, with no N x K factor besides W.
         """
+        return self._asymptotic_theta(W, N_k, method).cpu().numpy()
+
+    def _asymptotic_theta(self, W, N_k, method=None):
+        """:meth:`_computeAsymptoticCovarianceMatrix` as a tensor on W's
+        device (a numpy W is taken as a CPU tensor)."""
         if method is None or method == "bootstrap":
             method = "svd-ew"
         W = torch.as_tensor(W)
@@ -725,7 +1748,7 @@ class MBAR:
         VS = V * S[None, :]  # V @ Sigma
         Np = torch.as_tensor(N_k, dtype=W.dtype, device=W.device)
         inner = torch.eye(K, dtype=W.dtype, device=W.device) - VS.T @ (Np[:, None] * VS)
-        return (VS @ self._pseudoinverse(inner) @ VS.T).cpu().numpy()
+        return VS @ self._pseudoinverse(inner) @ VS.T
 
     @staticmethod
     def _theta_svd_ew_from_gram(gram, N_k):
@@ -813,19 +1836,22 @@ class MBAR:
 
     def _ErrorOfDifferences(self, cov, warning_cutoff=1.0e-10):
         """sigma_ij = sqrt(Theta_ii + Theta_jj - 2 Theta_ij), clamping tiny
-        negatives and warning on large ones (reference mbar.py:1687-1715)."""
+        negatives and warning on large ones (reference mbar.py:1687-1715).
+        ``cov`` is a numpy array or a tensor, computed on its device; the
+        result is a numpy array."""
+        cov = torch.as_tensor(cov)
         diag = cov.diagonal()
-        d2 = diag + np.vstack(diag) - 2 * cov
+        d2 = diag[None, :] + diag[:, None] - 2 * cov
         cutoff = -abs(warning_cutoff)
-        if np.any(d2 < 0.0):
-            if np.any(d2 < cutoff):
+        if bool((d2 < 0.0).any()):
+            if bool((d2 < cutoff).any()):
                 logger.warning(
                     "A squared uncertainty is negative. Largest Magnitude = "
-                    "{0:f}".format(abs(np.min(d2[d2 < cutoff])))
+                    "{0:f}".format(abs(float(d2[d2 < cutoff].min())))
                 )
             else:
-                d2[np.logical_and(0 > d2, d2 > cutoff)] = 0.0
-        return np.sqrt(np.array(d2))
+                d2[(0 > d2) & (d2 > cutoff)] = 0.0
+        return torch.sqrt(d2).cpu().numpy()
 
     def _zerosamestates(self, A):
         """Zero entries for state pairs detected as identical (reference :1741-1754)."""

@@ -270,7 +270,8 @@ def gram_f32_acc64(u_kn32, N_k32, f_k32, c32=None):
     return gram, colsum
 
 
-def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4):
+def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
+                            extra_rows=None, observable=None):
     """(W^T W, colsum W, row-check stats) in one streamed f64 pass.
 
     The aggregates the covariance estimators (Eq. D4/D5, Kong 2003) and the
@@ -279,24 +280,56 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4):
     sum_k N_k W_nk = 1 check, without an N-sized host array.  Computes in
     u's dtype (float64 on the card: the JAX package's float32 here was a
     TPU-only choice).
+
+    The augmented-state expectations (``MBAR._expectations_streamed``'s pass
+    B) ride the same chunk loop:
+
+    * ``sampled``: indices of the states with samples; each chunk's
+      log-denominator then runs over those rows only, so an empty state
+      cannot set a column's max.
+    * ``extra_rows(s, e, u_c, logden_c)``: (m, e - s) weight rows appended
+      below the chunk's W; the Gram and the column sums then cover K + m
+      rows, and the row check stays on the first K.
+    * ``observable(s, e, u_c)``: the chunk's observable A, either an
+      (e - s,) row shared by every state or a (K, e - s) slab (row k with
+      state k).  The pass then also returns ``(M1, M2, cA)`` with
+      M1 = W (A o W)^T, M2 = (A o W)(A o W)^T and cA = sum_n (A o W).
     """
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     K, N = u_kn.shape
     dev = u_kn.device
-    logden = log_denominator_n(u_kn, N_k, f_k)
-    gram = torch.zeros((K, K), dtype=u_kn.dtype, device=dev)
-    colsum = torch.zeros(K, dtype=u_kn.dtype, device=dev)
+    N_s, f_s = N_k, f_k
+    if sampled is not None:
+        sampled = torch.as_tensor(sampled, device=dev)
+        N_s, f_s = N_k[sampled], f_k[sampled]
+    gram = colsum = None
     big = torch.tensor(N + 1, dtype=torch.int64, device=dev)
     cnt = torch.zeros((), dtype=torch.int64, device=dev)
     fidx = big.clone()
     fval = torch.zeros((), dtype=torch.float64, device=dev)
+    if observable is not None:
+        m1 = torch.zeros((K, K), dtype=u_kn.dtype, device=dev)
+        m2 = torch.zeros_like(m1)
+        c_a = torch.zeros(K, dtype=u_kn.dtype, device=dev)
     for s, e in _col_chunks(u_kn):
         u_c = u_kn[:, s:e]
-        w = _weights(u_c, f_k, logden[s:e])
+        logden = _logden_direct(u_c if sampled is None else u_c.index_select(0, sampled), N_s, f_s)
+        w = _weights(u_c, f_k, logden)
         w.masked_fill_(u_c >= _PAD_THRESHOLD, 0.0)  # pad columns: phantom samples
+        rowsum = (N_k @ w).to(torch.float64)
+        if observable is not None:
+            a = observable(s, e, u_c)
+            wa = w * (a[None, :] if a.ndim == 1 else a)
+            m1 += _matmul(w, wa.T)
+            m2 += _matmul(wa, wa.T)
+            c_a += wa.sum(dim=1)
+        if extra_rows is not None:
+            w = torch.cat([w, extra_rows(s, e, u_c, logden)])
+        if gram is None:
+            gram = torch.zeros((w.shape[0],) * 2, dtype=u_kn.dtype, device=dev)
+            colsum = torch.zeros(w.shape[0], dtype=u_kn.dtype, device=dev)
         gram += _matmul(w, w.T)
         colsum += w.sum(dim=1)
-        rowsum = (N_k @ w).to(torch.float64)
         bad = torch.abs(rowsum - 1.0) > tolerance
         cnt += bad.sum()
         local_first = torch.argmax(bad.to(torch.int32))
@@ -304,7 +337,8 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4):
         take = gidx < fidx
         fidx = torch.where(take, gidx, fidx)
         fval = torch.where(take, rowsum[local_first], fval)
-    return gram, colsum, (int(cnt), int(fidx), float(fval))
+    out = (gram, colsum, (int(cnt), int(fidx), float(fval)))
+    return out if observable is None else (*out, (m1, m2, c_a))
 
 
 def precondition_u_kn(u_kn, N_k, f_k):

@@ -27,6 +27,9 @@ from pymbar_tpu.ops.mbar_core import precondition_u_kn
 from pymbar_tpu_torch import mbar as tmbar
 from pymbar_tpu_torch import solvers_large as tsl
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 B = 6
 
 

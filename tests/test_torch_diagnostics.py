@@ -18,6 +18,9 @@ import pymbar_tpu
 import pymbar_tpu_torch
 from pymbar_tpu_torch.utils import ParameterError
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 TOL = 1e-12
 N_K = [600, 300, 0, 500, 400]
 

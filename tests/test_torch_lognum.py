@@ -23,6 +23,9 @@ import jax.numpy as jnp
 from pymbar_tpu.ops import pallas_kernels as pk
 from pymbar_tpu_torch.ops import lognum as tl
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 PAD = np.float32(pk._PAD_U)
 
 

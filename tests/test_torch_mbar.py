@@ -22,6 +22,9 @@ from pymbar_tpu_torch.ops.mbar_core import mbar_gram_normalization
 from pymbar_tpu_torch.parallel import default_mesh
 from pymbar_tpu_torch.utils import ParameterError
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 METHODS = [None, "svd-ew", "approximate"]
 
@@ -241,7 +244,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "pymbar_tpu")
     files = sorted((REPO / "pymbar_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names_walked = {str(p.relative_to(REPO)) for p in files}
-    for module in ("other_estimators", "timeseries", "confidenceintervals", "utils_for_testing",
+    for module in ("checkpoint", "other_estimators", "timeseries", "confidenceintervals",
+                   "utils_for_testing",
                    "testsystems/exponential_distributions", "testsystems/gaussian_work",
                    "testsystems/timeseries"):
         assert f"pymbar_tpu_torch/{module}.py" in names_walked

@@ -17,6 +17,9 @@ import jax.numpy as jnp
 from pymbar_tpu.ops import mbar_core as jc
 from pymbar_tpu_torch.ops import mbar_core as tc
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 K, NPK = 32, 256
 
 

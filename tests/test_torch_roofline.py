@@ -16,6 +16,9 @@ import torch
 from pymbar_tpu.ops import pallas_kernels as pk
 from pymbar_tpu_torch.ops import roofline as tr
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 OMEGA = 0.5671432904097838  # the fixed point of x = exp(-x)
 
 

@@ -35,6 +35,9 @@ from pymbar_tpu_torch.ops.wsum import wsum_dd
 from pymbar_tpu_torch.parallel import sharding as ts
 from pymbar_tpu_torch.utils import ParameterError
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 
 def _mesh(P):
     return ts.default_mesh(P, device="cpu")

@@ -19,6 +19,9 @@ from pymbar_tpu_torch import solvers as ts
 from pymbar_tpu_torch import solvers_large as tsl
 from pymbar_tpu_torch.utils import ParameterError
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 
 def _oscillators(K, npk, seed, O_hi=4.0):
     rng = np.random.default_rng(seed)

@@ -18,6 +18,9 @@ import jax.numpy as jnp
 from pymbar_tpu.ops import pallas_kernels as pk
 from pymbar_tpu_torch.ops import wsum as tw
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 
 def _planes(K, N, seed, counts=False):
     rng = np.random.default_rng(seed)

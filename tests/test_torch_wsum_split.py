@@ -26,6 +26,9 @@ from pymbar_tpu_torch import solvers_large as tsl
 from pymbar_tpu_torch.ops import wsum as tw
 from pymbar_tpu_torch.ops import wsum_split as tsplit
 
+# one intra-op thread per test process: the suite's workers share the CPUs
+torch.set_num_threads(1)
+
 PAD = np.float32(pk._PAD_U)
 
 
