@@ -33,10 +33,16 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    sentinel column's ~-1e10; K5's sums <= 1e-13 relative), K6 then K7 on
    K5's masked ld equal to K5 (<= 1e-13), K5's lognum_k + g_k = log S_k of
    K1 (<= 1e-12), K5 unmoved by pad columns and exactly 0 on an all-pad
-   matrix, K7's phantom terms kept on pad columns; times at the flagship,
-   with those of the PyTorch calls that compute K6's and K7's functions
-   (torch.logsumexp over k, over n; both in turn for K5) on an f64 u built
-   once from the same planes and with the plane combine.
+   matrix, K7's phantom terms kept on pad columns.  K5, which runs K1's
+   cluster kernel, also at (8192, 65536) (clusters of 16), raising on 8193
+   states, the same bits twice at clusters of 2 and 8 with no K1 launch,
+   and on the rows it takes in its direct form (one row's g lowered by
+   750, one the -1e10 sentinel over real u, each with m_k its own lognum:
+   s_k ~ 1 while the row's T_kn underflow) against its plain version.
+   Times at the flagship, with those of the PyTorch calls that compute
+   K6's and K7's functions (torch.logsumexp over k, over n; both in turn
+   for K5) on an f64 u built once from the same planes and with the plane
+   combine; K5's and K1's medians in turns on one line.
    Times are medians of 5 synchronize-fenced calls.
    1d. The roofline probes (K8a-c): fma_chain in float32 and float64 over 2
    steps and exp_chain over 6 against their plain recurrences (16 ulp; x^2
@@ -797,6 +803,62 @@ def main():
     compare_lognum(f"{FLAGSHIP_K}x{N_flag // 4} flagship shard",
                    *make_planes(torch, FLAGSHIP_K, N_flag // 4, gen, dev))
     torch.cuda.empty_cache()
+    # K5 runs K1's cluster kernel (its kLognum instantiation): at its
+    # limit, 8192 states (clusters of 16; wsum_dd takes its split route
+    # there for the identity), above it (raises, launches nothing), bit for
+    # bit twice at clusters of 2 and 8, and no K1 launch of its own
+    compare_lognum(f"{SLICE_K}x65536 (clusters of 16)", *make_planes(torch, SLICE_K, 65536, gen, dev))
+    torch.cuda.empty_cache()
+    over = make_planes(torch, SLICE_K + 1, 64, gen, dev)
+    before = (lognum.LOGNUM_FUSED_LAUNCHES, wsum.WSUM_LAUNCHES)
+    try:
+        lognum.lognum_fused_dd(*over, torch.zeros(SLICE_K + 1, dtype=torch.float32, device=dev))
+    except RuntimeError:
+        lognum_checks.append(dict(case=f"{SLICE_K + 1}x64 raises", raised=True))
+    else:
+        fail("K5 took 8193 states, beyond the cluster kernel's limit")
+    if (lognum.LOGNUM_FUSED_LAUNCHES, wsum.WSUM_LAUNCHES) != before:
+        fail("K5 launched on 8193 states")
+    del over
+    for K_b in (1024, 4096):
+        uh, ul, gh, gl = make_planes(torch, K_b, 20000, gen, dev)
+        m_k = lognum_shift(torch, uh, lognum.logden_dd(uh, ul, gh, gl)[0])
+        before = wsum.WSUM_LAUNCHES
+        a, b = (lognum.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True) for _ in range(2))
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"K5: two calls at K = {K_b} gave different bits")
+        if wsum.WSUM_LAUNCHES != before:
+            fail("a K5 call raised WSUM_LAUNCHES")
+        lognum_checks.append(dict(case=f"{K_b}x20000 two calls (clusters of {K_b // 512})",
+                                  same_bits=True))
+    # The rows K5 takes in its direct form: row 3's g lowered by 750 below
+    # the others, row 5's the -1e10 sentinel over real u (a clash-level
+    # row), each with m_k its own lognum from the plain twin, so s_k ~ 1
+    # while every T_kn = exp(a_kn - m_n) of the row underflows
+    uh, ul, gh, gl = make_planes(torch, FLAGSHIP_K, 65536, gen, dev)
+    g = dd_to_f64(gh, gl)
+    g[3] -= 750.0
+    g[5] = -1.0e10
+    gh, gl = dd_from_f64(g)
+    m_k = lognum_shift(torch, uh, lognum.logden_dd(uh, ul, gh, gl)[0])
+    m_n = wsum_split.column_shift(uh, gh).to(torch.float64)
+    ln_ref = dd_to_f64(*lognum.lognum_fused_dd_plain(uh, ul, gh, gl, m_k))
+    far = [3, 5]
+    m_k[far] = ln_ref[far].to(torch.float32)
+    T_far = max(float((dd_to_f64(gh, gl)[k] - dd_to_f64(uh[k], ul[k]) - m_n).max()) for k in far)
+    s5 = dd_to_f64(*lognum.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True))
+    ln5 = dd_to_f64(*lognum.lognum_fused_dd(uh, ul, gh, gl, m_k))
+    s_ref = dd_to_f64(*lognum.lognum_fused_dd_plain(uh, ul, gh, gl, m_k, return_sums=True))
+    e = dict(lognum_fused_dd_sums=rel_err(s5, s_ref),
+             lognum_fused_dd=log_err(ln5, torch.log(s_ref) + m_k.to(torch.float64)),
+             far_rows_s=[float(s_ref[k]) for k in far], far_rows_max_a_minus_m=T_far)
+    lognum_checks.append(dict(case=f"{FLAGSHIP_K}x65536 direct-form rows (g - 750, g = -1e10)", **e))
+    if not (e["lognum_fused_dd_sums"] <= S_REL_TOL and e["lognum_fused_dd"] <= LOG_ABS_TOL):
+        fail(f"K5's direct-form rows vs plain {e}")
+    if not (T_far < -745.0 and all(abs(v - 1.0) < 1e-5 for v in e["far_rows_s"])):
+        fail(f"the direct-form rows are not the ones intended: {e}")
+    del uh, ul, gh, gl, g, m_k, m_n
+    torch.cuda.empty_cache()
     planes = make_planes(torch, FLAGSHIP_K, N_flag, gen, dev)
     compare_lognum(f"{FLAGSHIP_K}x{N_flag} flagship shape", *planes)
     uh, ul, gh, gl = planes
@@ -810,6 +872,15 @@ def main():
     times["lognum_fused_dd"] = (
         median_ms(torch, lambda: lognum.lognum_fused_dd(*planes, m_k, return_sums=True)),
         median_ms(torch, lambda: lognum.lognum_fused_dd_plain(*planes, m_k, return_sums=True)))
+    # K5 and K1 share one kernel: their medians in turns (K1, K5, K5, K1)
+    calls = {"wsum_dd": lambda: wsum.wsum_dd(*planes),
+             "lognum_fused_dd": lambda: lognum.lognum_fused_dd(*planes, m_k, return_sums=True)}
+    k5_vs_k1 = {name: [] for name in calls}
+    for name in ("wsum_dd", "lognum_fused_dd", "lognum_fused_dd", "wsum_dd"):
+        k5_vs_k1[name].append(median_ms(torch, calls[name]))
+    emit("1_k5_vs_k1", card=smi, shape=[FLAGSHIP_K, N_flag], ms=k5_vs_k1,
+         k5_over_k1=statistics.median(k5_vs_k1["lognum_fused_dd"])
+         / statistics.median(k5_vs_k1["wsum_dd"]))
     # One PyTorch call computes K6's function (logsumexp over k) and one K7's
     # (over n); K5's is the two in turn.  Timed on an f64 u built once from
     # the same planes, then with the plane combine, which makes them take
@@ -1453,7 +1524,7 @@ def main():
         ("lognum_dd", "pymbar_tpu_torch/csrc/lognum.cu", "pymbar_tpu/ops/pallas_kernels.py:261",
          mesh_launches["LOGNUM_LAUNCHES"],
          bound(8 * K * Nf + 8 * Nf + 4 * K, 8 * K, 5 * K * Nf, F64_OPS_PER_S)),
-        ("lognum_fused_dd", "pymbar_tpu_torch/csrc/lognum.cu",
+        ("lognum_fused_dd", "pymbar_tpu_torch/csrc/wsum_fused.cuh",
          "pymbar_tpu/ops/pallas_kernels.py:331", mesh_launches["LOGNUM_FUSED_LAUNCHES"],
          bound(8 * K * Nf + 12 * K, 8 * K, 10 * K * Nf, F64_OPS_PER_S)),
         ("fma_chain_f32", "pymbar_tpu_torch/csrc/roofline.cu", "bench.py:253",

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
     python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap] [diagnostics]
-                                       [expectations]
+                                       [expectations] [clusters]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -58,6 +58,15 @@ memory.  Then, at the flagship, the walls of those two calls and of their
 steps, three times each after one warm-up: pass A alone, pass B (the
 structured Gram pass), the Gram assembly and the rank-nnz Theta, and for
 entropy the three sigma matrices; and one profiler trace of each call.
+
+``clusters`` reads the single-read cluster kernel (csrc/wsum_fused.cuh) by
+its cluster size: at K = 1024, 2048, 4096 and 8192 states (clusters of 2,
+4, 8 and 16 blocks of 512 rows) over 2^30 elements each (N = 2^30 / K,
+random planes), the clusters the card holds at once and the SMs they
+fill, K1's and K5's (its second instantiation) medians of 5 fenced calls
+in turns (K1, K5, K5, K1), their element rates per SM, and K1's pinned
+ceiling at the same K (``roofline.measure_wsum_ceiling`` over a (K,
+2^19 / K) tile, 4 MB of planes in L2, 2^32 elements).
 """
 
 import json
@@ -479,13 +488,60 @@ def profile_expectations(torch, card):
     torch.cuda.empty_cache()
 
 
+def profile_clusters(torch, card):
+    """The cluster kernel by cluster size: occupancy, K1, K5, pinned ceiling."""
+    from pymbar_tpu_torch.ops import lognum, roofline, wsum
+    from pymbar_tpu_torch.ops.doubledouble import dd_from_f64
+
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for K in (1024, 2048, 4096, 8192):
+        N = 2**30 // K
+        uh = torch.empty((K, N), dtype=torch.float32, device=dev)
+        ul = torch.empty_like(uh)
+        step = 2**26 // K
+        for s0 in range(0, N, step):  # u in [0, 10), made in column chunks
+            uh[:, s0:s0 + step], ul[:, s0:s0 + step] = dd_from_f64(
+                torch.rand((K, min(step, N - s0)), generator=gen, dtype=torch.float64,
+                           device=dev).mul_(10.0))
+        gh, gl = dd_from_f64(torch.randn(K, generator=gen, dtype=torch.float64, device=dev) * 0.5
+                             + float(torch.log(torch.tensor(N / K))))
+        m_k = torch.full((K,), -8.8, dtype=torch.float32, device=dev)
+        gate = wsum._SPLIT_ROUTE_K
+        wsum._SPLIT_ROUTE_K = 2**31  # K1 itself at 8192, not the split route
+        try:
+            calls = {"wsum_dd": lambda: wsum.wsum_dd(uh, ul, gh, gl),
+                     "lognum_fused_dd": lambda: lognum.lognum_fused_dd(uh, ul, gh, gl, m_k,
+                                                                       return_sums=True)}
+            ms = {"wsum_dd": [], "lognum_fused_dd": []}
+            for name in ("wsum_dd", "lognum_fused_dd", "lognum_fused_dd", "wsum_dd"):
+                ms[name].append(median_ms(torch, calls[name]))
+        finally:
+            wsum._SPLIT_ROUTE_K = gate
+        del uh, ul
+        torch.cuda.empty_cache()
+        clusters = wsum.fused_partial(K, dev).shape[0]
+        C = (K + 511) // 512
+        tile = 2**19 // K
+        ceiling = roofline.measure_wsum_ceiling(K, tile, 2**32 // (K * tile), device=dev)
+        k1 = sorted(ms["wsum_dd"])[0]
+        print(json.dumps(dict(
+            config="clusters", card=card, K=K, N=N, cluster_blocks=C, resident_clusters=clusters,
+            sms_filled=C * clusters, sms=sms, ms=ms,
+            k1_elements_per_s_per_sm=K * N / (k1 * 1e-3) / (C * clusters),
+            k5_over_k1=sorted(ms["lognum_fused_dd"])[0] / k1,
+            pinned_tile=[K, tile], pinned_elements_per_s=ceiling,
+            pinned_ms_for_these_elements=K * N / ceiling * 1e3)), flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics,
-             "expectations": profile_expectations}
+             "expectations": profile_expectations, "clusters": profile_clusters}
     names = sys.argv[1:] or [*CONFIGS, *extra]
     unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:
@@ -493,7 +549,7 @@ def main():
     sys.path.insert(0, REPO)
     from pymbar_tpu_torch.ops import _build
 
-    for lib in ("wsum", "wsum_split", "lognum"):  # build outside every timed region
+    for lib in ("wsum", "wsum_split", "lognum", "roofline"):  # build outside every timed region
         _build.load(lib)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

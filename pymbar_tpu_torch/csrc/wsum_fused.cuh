@@ -5,6 +5,17 @@
 // a pad column, m_n < -1e8), from one read of both f32 planes and one f64
 // exp per element.
 //
+// Its kLognum instantiation is K5 lognum_fused_dd (lognum.cu, which holds
+// the identity and the threshold): the same stream with the column weight
+// r_n = exp(m_n - ld_n), ld_n = log s_n + m_n rounded to its (hi, lo)
+// float32 pair (lognum_column_weight), in place of c_n / s_n, so the
+// partials are A_k = sum_n T_kn r_n and lognum.cu's finish forms s_k.  A
+// row with |g_k + m_k| > kLognumDirectShift (lognum_direct_row, decided
+// once per launch, a flag per row in shared memory) takes the direct
+// form: in a block that has one, after T_kn entered s_n the row's T
+// register takes exp((-m_k - u_kn) - m_n), so r_n completes K7's term.
+// With kLognum false (K1) every K5 step compiles away.
+//
 // What bounds it on the H100: one read is 8 B/element (8.2 GB at the
 // 1024 x 999424 flagship, 2.44 ms at 3.35 TB/s), but this kernel is held
 // by its per-tile instruction stream, not by HBM: pinned to one
@@ -87,6 +98,33 @@ constexpr int kFusedSmemBytes = kFusedStages * kFusedStageBytes + kExpTableBytes
                                 kFusedWarps * kFusedCols * 4 + kFusedWarps * kFusedCols * 8 +
                                 2 * kFusedCols * 4 + 2 * kFusedCols * 8;  // 206,720
 constexpr float kFusedPadShift = -1.0e8f;
+// K5's block adds one direct-form flag per row
+constexpr int kLognumSmemBytes = kFusedSmemBytes + kFusedRows;  // 207,232
+// K5 takes a row k in the direct form when |g_k + m_k| exceeds this (the
+// derivation is in lognum.cu's note)
+constexpr double kLognumDirectShift = 64.0;
+
+template <bool kLognum>
+constexpr int fused_smem_bytes() {
+  return kLognum ? kLognumSmemBytes : kFusedSmemBytes;
+}
+
+// K5: does row k take the direct form?  g = g_hi + g_lo and m_k in f64,
+// the same expression in the kernel and in lognum.cu's finish, so both
+// decide alike; NaN or inf in g + m_k takes the direct form.
+__host__ __device__ __forceinline__ bool lognum_direct_row(double g, double mk) {
+  return !(fabs(g + mk) <= kLognumDirectShift);
+}
+
+// K5's column weight r_n = exp(m_n - ld_n), with ld_n = log s_n + m_n
+// rounded to the (hi, lo) float32 pair that K6 writes and K7 reads.
+__device__ __forceinline__ double lognum_column_weight(double sn, double md,
+                                                       const double* __restrict__ tab) {
+  const double ld = log(sn) + md;
+  const float hi = (float)ld;
+  const float lo = (float)(ld - (double)hi);
+  return exp_tab(md - ((double)hi + (double)lo), tab);
+}
 
 // .aligned: every thread of the warp executes the barrier together.
 __device__ __forceinline__ void cluster_arrive() {
@@ -99,12 +137,12 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <bool kPinned, bool kVec>
+template <bool kPinned, bool kVec, bool kLognum>
 __global__ void __launch_bounds__(kFusedThreads, 1)
 wsum_fused(const float* __restrict__ uh, const float* __restrict__ ul,
            const float* __restrict__ gh, const float* __restrict__ gl,
-           const float* __restrict__ c, int K, int64_t N, int64_t tile, int C, int n_clusters,
-           double* __restrict__ partial) {
+           const float* __restrict__ c, const float* __restrict__ mk, int K, int64_t N,
+           int64_t tile, int C, int n_clusters, double* __restrict__ partial) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* p = smem + kFusedStages * kFusedStageBytes;
@@ -121,6 +159,8 @@ wsum_fused(const float* __restrict__ uh, const float* __restrict__ ul,
   float* lmax = reinterpret_cast<float*>(p);  // [parity][col], read by the cluster
   p += 2 * kFusedCols * 4;
   double* lsum = reinterpret_cast<double*>(p);  // [parity][col], read by the cluster
+  p += 2 * kFusedCols * 8;
+  unsigned char* direct = p;  // K5: the block's direct-form rows
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -174,13 +214,23 @@ wsum_fused(const float* __restrict__ uh, const float* __restrict__ ul,
 #pragma unroll
   for (int i = 0; i < kFusedStages; ++i) prefetch(i);
   exp_table_init(tab);
+  bool d = false;  // K5: row t takes the direct form
   if (t < kFusedRows) {
     const bool in = t < rows;
     gs[t] = in ? (double)gh[k0 + t] + (double)gl[k0 + t] : 0.0;
     ghs[t] = in ? gh[k0 + t] : 0.0f;
+    if constexpr (kLognum) {
+      d = in && lognum_direct_row(gs[t], (double)mk[k0 + t]);
+      direct[t] = d;
+    }
   }
   cp_async_wait<kFusedStages - 1>();
-  __syncthreads();
+  bool any_direct = false;  // K5: a direct-form row in this block (block-uniform)
+  if constexpr (kLognum) {
+    any_direct = __syncthreads_or(d);
+  } else {
+    __syncthreads();
+  }
   column_max(0);
   cluster_arrive();
 
@@ -218,6 +268,19 @@ wsum_fused(const float* __restrict__ uh, const float* __restrict__ ul,
         T[j] = 0.0;
       }
     }
+    if constexpr (kLognum) {
+      if (any_direct) {  // direct-form rows hold exp((-m_k - u_kn) - m_n); s has their T
+#pragma unroll
+        for (int j = 0; j < kFusedRowsPerThread; ++j) {
+          const int kr = row0 + kFusedLaneGroups * j;
+          if (kr < rows && direct[kr]) {
+            const int idx = kr * kFusedCols + col;
+            const double v = -(double)__ldg(mk + k0 + kr) - ((double)sh[idx] + (double)sl[idx]);
+            T[j] = exp_tab(v - md, tab);
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int off = kFusedCols; off < 32; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane < kFusedCols) red_sum[w * kFusedCols + col] = s;
@@ -241,8 +304,12 @@ wsum_fused(const float* __restrict__ uh, const float* __restrict__ ul,
     for (int b = 0; b < C; ++b) sn += cluster.map_shared_rank(lsum, b)[par * kFusedCols + col];
     double rn = 0.0;
     if (in && !(mf < kFusedPadShift)) {  // the contract's pad rule
-      rn = 1.0 / sn;
-      if (c != nullptr) rn *= (double)c[n];
+      if constexpr (kLognum) {
+        rn = lognum_column_weight(sn, md, tab);
+      } else {
+        rn = 1.0 / sn;
+        if (c != nullptr) rn *= (double)c[n];
+      }
     }
     r_prev = rn;
     if (i + 1 < ntiles) cluster_arrive();
@@ -273,18 +340,18 @@ inline int fused_cluster_size(int K) {
   return (K > 0 && C <= kFusedMaxCluster) ? C : 0;
 }
 
-template <bool kPinned, bool kVec>
+template <bool kPinned, bool kVec, bool kLognum>
 cudaError_t fused_config(int C, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  cudaError_t e = cudaFuncSetAttribute(
-      wsum_fused<kPinned, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFusedSmemBytes);
+  auto* kernel = wsum_fused<kPinned, kVec, kLognum>;
+  constexpr int smem = fused_smem_bytes<kLognum>();
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(wsum_fused<kPinned, kVec>,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(C);
   cfg->blockDim = dim3(kFusedThreads);
-  cfg->dynamicSmemBytes = kFusedSmemBytes;
+  cfg->dynamicSmemBytes = smem;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = C;
   attr->val.clusterDim.y = 1;
@@ -295,50 +362,64 @@ cudaError_t fused_config(int C, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* at
 }
 
 // The clusters of C blocks the current card holds at once (0 on error).
+// One block of either instantiation fills an SM (512 threads at the
+// 128-register cap, over 200 KB of shared memory), so K1's answer is K5's.
 inline int fused_max_clusters(int C) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if (C <= 0 || fused_config<false, true>(C, &cfg, &attr) != cudaSuccess) return 0;
+  if (C <= 0 || fused_config<false, true, false>(C, &cfg, &attr) != cudaSuccess) return 0;
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, wsum_fused<false, true>, &cfg) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveClusters(&n, wsum_fused<false, true, false>, &cfg) != cudaSuccess)
+    return 0;
   return n;
 }
 
-template <bool kPinned, bool kVec>
+template <bool kPinned, bool kVec, bool kLognum>
 cudaError_t launch_fused_as(const float* uh, const float* ul, const float* gh, const float* gl,
-                            const float* c, int K, int64_t N, int64_t tile, int C,
-                            int n_clusters, double* partial, cudaStream_t st) {
+                            const float* c, const float* mk, int K, int64_t N, int64_t tile,
+                            int C, int n_clusters, double* partial, cudaStream_t st) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = fused_config<kPinned, kVec>(C, &cfg, &attr);
+  cudaError_t e = fused_config<kPinned, kVec, kLognum>(C, &cfg, &attr);
   if (e != cudaSuccess) return e;
   cfg.gridDim = dim3((unsigned)(C * n_clusters));
   cfg.stream = st;
-  e = cudaLaunchKernelEx(&cfg, wsum_fused<kPinned, kVec>, uh, ul, gh, gl, c, K, N, tile, C,
-                         n_clusters, partial);
+  e = cudaLaunchKernelEx(&cfg, wsum_fused<kPinned, kVec, kLognum>, uh, ul, gh, gl, c, mk, K, N,
+                         tile, C, n_clusters, partial);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// The fused kernel then wsum_finish on `st`: min(max_clusters, column
-// tiles) persistent clusters, partial ((max_clusters, K) float64) and the
-// (K,) float32 outputs allocated by the caller; c may be null; `tile` is
-// read only by the pinned probe.
+// The fused kernel on `st` over min(max_clusters, column tiles) persistent
+// clusters, their count in *n_clusters: K1 (c may be null, mk null) or K5
+// (kLognum, c null, mk the row shifts).  partial ((max_clusters, K)
+// float64) is allocated by the caller; `tile` is read only by the pinned
+// probe.
+template <bool kPinned, bool kLognum>
+cudaError_t launch_fused(const float* uh, const float* ul, const float* gh, const float* gl,
+                         const float* c, const float* mk, int K, int64_t N, int max_clusters,
+                         double* partial, cudaStream_t st, int64_t tile, int* n_clusters) {
+  const int C = fused_cluster_size(K);
+  const int64_t col_tiles = (N + kFusedCols - 1) / kFusedCols;
+  if (C == 0 || N <= 0 || max_clusters <= 0) return cudaErrorInvalidValue;
+  *n_clusters = (int)(col_tiles < max_clusters ? col_tiles : max_clusters);
+  return planes_vec_ok(uh, ul, kPinned ? tile : N)
+             ? launch_fused_as<kPinned, true, kLognum>(uh, ul, gh, gl, c, mk, K, N, tile, C,
+                                                       *n_clusters, partial, st)
+             : launch_fused_as<kPinned, false, kLognum>(uh, ul, gh, gl, c, mk, K, N, tile, C,
+                                                        *n_clusters, partial, st);
+}
+
+// K1 then wsum_finish on `st`; the (K,) float32 outputs allocated by the
+// caller.
 template <bool kPinned = false>
 cudaError_t launch_fused_and_finish(const float* uh, const float* ul, const float* gh,
                                     const float* gl, const float* c, int K, int64_t N,
                                     int max_clusters, double* partial, float* s_hi, float* s_lo,
                                     cudaStream_t st, int64_t tile = 0) {
-  const int C = fused_cluster_size(K);
-  const int64_t col_tiles = (N + kFusedCols - 1) / kFusedCols;
-  if (C == 0 || N <= 0 || max_clusters <= 0) return cudaErrorInvalidValue;
-  const int n_clusters = (int)(col_tiles < max_clusters ? col_tiles : max_clusters);
-  const cudaError_t e =
-      planes_vec_ok(uh, ul, kPinned ? tile : N)
-          ? launch_fused_as<kPinned, true>(uh, ul, gh, gl, c, K, N, tile, C, n_clusters, partial,
-                                           st)
-          : launch_fused_as<kPinned, false>(uh, ul, gh, gl, c, K, N, tile, C, n_clusters,
-                                            partial, st);
+  int n_clusters = 0;
+  const cudaError_t e = launch_fused<kPinned, false>(uh, ul, gh, gl, c, nullptr, K, N,
+                                                     max_clusters, partial, st, tile, &n_clusters);
   if (e != cudaSuccess) return e;
   wsum_finish<<<(K + kFinishThreads - 1) / kFinishThreads, kFinishThreads, 0, st>>>(
       partial, K, n_clusters, s_hi, s_lo);

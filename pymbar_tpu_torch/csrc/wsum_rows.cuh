@@ -1,8 +1,8 @@
 // The weight-sum row pass and its finish, shared by wsum_split.cu (K4
-// wsum_denom_dd) and lognum.cu (K7, K5's second half): given per-column f64
-// shifts m_n and weights r_n, S_k = sum_n exp((g_k - u_kn) - m_n) r_n.  K1's
-// fused kernel (wsum_fused.cuh) takes its exp, its cp.async staging and its
-// finish from here.
+// wsum_denom_dd) and lognum.cu (K7): given per-column f64 shifts m_n and
+// weights r_n, S_k = sum_n exp((g_k - u_kn) - m_n) r_n.  The cluster
+// kernel of K1 and K5 (wsum_fused.cuh) takes its exp, its cp.async
+// staging and K1's finish from here.
 //
 // What bounds it on the H100: bytes.  Each element of both f32 planes is
 // read once (8 B) and costs one f64 exp (~21 FP64 FMA slots at the

@@ -15,7 +15,10 @@ Same inputs, outputs and pad rules as the JAX package, minus its TPU knobs
 (tile width, interpret mode, fast exp) and its K <= 2048 cap.
 
 * CUDA tensors launch the hand-written Hopper kernels of ``csrc/lognum.cu``
-  (built by :mod:`pymbar_tpu_torch.ops._build` on first use).
+  (built by :mod:`pymbar_tpu_torch.ops._build` on first use).  K5 is one
+  read of the planes: the K5 instantiation of K1's single-read cluster
+  kernel (``csrc/wsum_fused.cuh``), so on the card it holds at most
+  8192 states (``wsum.FUSED_MAX_K``) and raises above.
 * CPU tensors run the plain PyTorch versions (``*_plain``), with true f64
   inner math streamed over column chunks.
 
@@ -31,7 +34,7 @@ import torch
 from pymbar_tpu_torch.ops import _build
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
 from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES
-from pymbar_tpu_torch.ops.wsum import _PAD_M
+from pymbar_tpu_torch.ops.wsum import _PAD_M, fused_partial
 from pymbar_tpu_torch.ops.wsum_split import check_planes, row_splits
 
 __all__ = [
@@ -115,7 +118,7 @@ def _lib():
     signatures = {
         "logden_launch": [p, p, p, p, i32, i64, p, p, p],
         "lognum_launch": [p, p, p, p, p, i32, i64, i32, p, p, p, p, p, p, p, p],
-        "lognum_fused_launch": [p, p, p, p, p, i32, i64, i32, i32, p, p, p, p, p, p, p, p],
+        "lognum_fused_launch": [p, p, p, p, p, i32, i64, i32, i32, p, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -135,7 +138,7 @@ def _call(fn_name, dev, *args):
 
 
 def _row_scratch(K, N, dev):
-    """Scratch of the row pass: ld64, r, g_hi, g_lo, partial, out_hi, out_lo."""
+    """Scratch of K7's row pass: ld64, r, g_hi, g_lo, partial, out_hi, out_lo."""
     f32, f64 = torch.float32, torch.float64
     n_split = row_splits(K, N)
     return n_split, [
@@ -212,6 +215,8 @@ def lognum_fused_dd(u_hi, u_lo, g_hi, g_lo, m_k, return_sums=False):
     the +1e10 sentinel) adds exactly 0.  Returns (K,) float32 (hi, lo) of
     ln_k = log s_k + m_k, or with ``return_sums`` of the raw sums
     s_k = sum_n exp((-ld_n - u_kn) - m_k), which merge across sample shards.
+    On a CUDA tensor more than 8192 states (``wsum.FUSED_MAX_K``, the
+    cluster kernel's limit) raise RuntimeError.
     """
     global LOGNUM_FUSED_LAUNCHES
     check_planes("lognum_fused_dd", u_hi, u_lo, g_hi, g_lo, m_k=m_k)
@@ -221,9 +226,11 @@ def lognum_fused_dd(u_hi, u_lo, g_hi, g_lo, m_k, return_sums=False):
     if dev.type != "cuda":
         raise _no_kernel("lognum_fused_dd", dev)
     K, N = u_hi.shape
-    n_split, scratch = _row_scratch(K, N, dev)
+    partial = fused_partial(K, dev, "lognum_fused_dd")
+    out_hi = torch.empty(K, dtype=torch.float32, device=dev)
+    out_lo = torch.empty(K, dtype=torch.float32, device=dev)
     _call("lognum_fused_launch", dev, u_hi.data_ptr(), u_lo.data_ptr(), g_hi.data_ptr(),
-          g_lo.data_ptr(), m_k.data_ptr(), K, N, n_split, int(bool(return_sums)),
-          *(t.data_ptr() for t in scratch))
+          g_lo.data_ptr(), m_k.data_ptr(), K, N, partial.shape[0], int(bool(return_sums)),
+          partial.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr())
     LOGNUM_FUSED_LAUNCHES += 1
-    return scratch[5], scratch[6]
+    return out_hi, out_lo

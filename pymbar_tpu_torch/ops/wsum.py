@@ -36,6 +36,7 @@ __all__ = [
     "wsum_dd_plain",
     "split_route",
     "fused_partial",
+    "FUSED_MAX_K",
     "WSUM_LAUNCHES",
 ]
 
@@ -53,6 +54,11 @@ _PAD_M = -1.0e8
 # the gate belongs on this card is still to be measured (PERF.md).  Module
 # constant so tests can move it; above 8192 K1 raises.
 _SPLIT_ROUTE_K = 4096
+
+# The most states the single-read cluster kernel (K1, and K5 in
+# ops/lognum.py) holds: clusters of at most 16 blocks of 512 rows
+# (csrc/wsum_fused.cuh).
+FUSED_MAX_K = 8192
 
 # (card index, K) -> clusters of the fused kernel resident at once.
 _MAX_CLUSTERS = {}
@@ -97,11 +103,16 @@ def _lib():
     return lib
 
 
-def fused_partial(K, dev):
-    """The partial sums of one K1 call of K states on card ``dev``: an
-    uninitialised (clusters, K) float64 tensor, one row per cluster of the
-    fused kernel that the card holds at once (the occupancy API's answer,
-    cached per card and K).  Raises when no cluster holds K states."""
+def fused_partial(K, dev, caller="wsum_dd"):
+    """The partial sums of one call of the cluster kernel (K1, or K5 for
+    ``caller`` lognum_fused_dd) on K states on card ``dev``: an
+    uninitialised (clusters, K) float64 tensor, one row per cluster that the
+    card holds at once (the occupancy API's answer, cached per card and K).
+    Raises RuntimeError above ``FUSED_MAX_K`` states."""
+    if K > FUSED_MAX_K:
+        raise RuntimeError(
+            f"{caller}: the single-read cluster kernel holds at most {FUSED_MAX_K} states "
+            f"(16 blocks of 512 rows), got {K}")
     key = (dev.index, K)
     if key not in _MAX_CLUSTERS:
         out = ctypes.c_int(0)
@@ -109,8 +120,8 @@ def fused_partial(K, dev):
             err = _lib().wsum_fused_clusters(K, ctypes.byref(out))
         if err != 0 or out.value <= 0:
             raise RuntimeError(
-                f"wsum_dd: no cluster of the fused kernel holds {K} states on {dev} "
-                f"(at most 16 blocks of 512 rows; CUDA error {err})")
+                f"{caller}: no cluster of the fused kernel holds {K} states on {dev} "
+                f"(CUDA error {err})")
         _MAX_CLUSTERS[key] = out.value
     return torch.empty((_MAX_CLUSTERS[key], K), dtype=torch.float64, device=dev)
 

@@ -180,7 +180,7 @@ def _call(fn_name, dev, *args):
 
 
 def row_splits(K, N):
-    """Column splits of the shared row pass (K4, K7, K5's second half):
+    """Column splits of the shared row pass (K4, K7):
     ~_ROW_TARGET_BLOCKS blocks of _ROWS_PER_BLOCK rows, each split
     at least _MIN_COLS_PER_SPLIT columns wide.  The kernel rounds each
     split up to whole column tiles."""

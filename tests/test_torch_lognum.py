@@ -13,6 +13,9 @@ column's log-denominator sits near -1e10, where f64 holds ~2e-6: it is
 compared relative to its size.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ import jax.numpy as jnp
 
 from pymbar_tpu.ops import pallas_kernels as pk
 from pymbar_tpu_torch.ops import lognum as tl
+from pymbar_tpu_torch.ops import wsum as tw
 
 # one intra-op thread per test process: the suite's workers share the CPUs
 torch.set_num_threads(1)
@@ -104,6 +108,64 @@ def test_plain_matches_jax_reference(kernel, shape):
     }
     ours = _run(kernel, p)
     assert _log_err(ours, ref[kernel]()) <= 1e-11
+
+
+def _far_row(kind):
+    """(5, 1003) planes with 7 sentinel columns (the shape of the K5 case
+    above, so JAX's jit cache holds it) where row 2 is one that K5's
+    single-read kernel cannot factorize: its g lowered by 750 below the
+    others ("lowered") or the -1e10 sentinel over real u ("clash"), with
+    m_2 its own lognum from the plain twin, so that s_2 ~ 1 while every
+    exp(a_2n - m_n) underflows (to 0 or below f64's normal range).  Returns
+    the planes with the scipy truth."""
+    p = _planes(5, 1003, seed=1008, pad_cols=7)
+    g = p["gh"].astype(np.float64) + p["gl"]
+    g[2] = g[2] - 750.0 if kind == "lowered" else -1.0e10
+    p["gh"] = g.astype(np.float32)
+    p["gl"] = (g - p["gh"]).astype(np.float32)
+    g = p["gh"].astype(np.float64) + p["gl"]
+    u = (p["uh"].astype(np.float64) + p["ul"])[:, :1003]
+    m_n = np.max(p["gh"][:, None] - p["uh"][:, :1003], axis=0).astype(np.float64)
+    assert np.all(np.exp(g[2] - u[2] - m_n) < np.finfo(np.float64).tiny)
+    p["m_k"][2] = _f64(tl.lognum_fused_dd(*_t(p["uh"], p["ul"], p["gh"], p["gl"], p["m_k"])))[2]
+    ld64 = logsumexp(g[:, None] - u, axis=0)
+    p["ln64"] = logsumexp(-ld64[None, :] - u, axis=1)
+    return p
+
+
+@pytest.mark.parametrize("kind", ["lowered", "clash"])
+def test_plain_holds_rows_the_fused_kernel_takes_directly(kind):
+    """The contract K5's kernel meets on the card in its direct form
+    (tests/test_torch_lognum_cuda.py), pinned on the plain twin: its logs
+    against JAX's lognum_fused_dd_ref (1e-11) and scipy's f64 logsumexp
+    (1e-12), and s_2 ~ 1."""
+    p = _far_row(kind)
+    args = (p["uh"], p["ul"], p["gh"], p["gl"], p["m_k"])
+    ln = _f64(tl.lognum_fused_dd(*_t(*args)))
+    assert _log_err(ln, _f64(pk.lognum_fused_dd_ref(*_j(*args)))) <= 1e-11
+    assert np.max(np.abs(ln - p["ln64"])) <= 1e-12
+    assert abs(_f64(tl.lognum_fused_dd(*_t(*args), return_sums=True))[2] - 1.0) <= 1e-5
+
+
+_CSRC = Path(tl.__file__).parent.parent / "csrc"
+
+
+def test_k5_state_limit_is_k1s():
+    """K5 is an instantiation of K1's cluster kernel: csrc/lognum.cu
+    includes csrc/wsum_fused.cuh and launches its kLognum form, whose state
+    limit (blocks of kFusedRows rows, clusters of at most kFusedMaxCluster
+    blocks, read from the source) is K1's 8192, the wrappers'
+    ``FUSED_MAX_K``; K5's block fits the H100's 227 KB."""
+    src = (_CSRC / "lognum.cu").read_text()
+    assert re.findall(r'^#include "(\S+)"', src, re.M) == ["wsum_fused.cuh"]
+    assert "launch_fused<false, true>(" in src
+    env = {}
+    for name in ("wsum_rows.cuh", "wsum_fused.cuh"):
+        code = re.sub(r"//[^\n]*", "", (_CSRC / name).read_text())
+        for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", code, re.M):
+            env[key] = eval(f"({expr})".replace("/", "//"), {}, env)
+    assert env["kFusedRows"] * env["kFusedMaxCluster"] == 8192 == tw.FUSED_MAX_K
+    assert env["kLognumSmemBytes"] <= 232448
 
 
 # Interpret mode walks the Pallas grid in Python, at a cost that grows

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of the lognum family (K6 logden_dd, K7
 lognum_dd, K5 lognum_fused_dd) against their plain PyTorch versions, their
-identity with K1, and a P = 4 mesh dd solve on one card.
+identity with K1, and a P = 4 mesh dd solve on one card.  K5 is the K5
+instantiation of K1's cluster kernel: also at its largest clusters, above
+its 8192 states, bit for bit twice, and on the rows it takes directly.
 
 Needs an NVIDIA card (marker ``cuda``); skips without one.  Imports no JAX,
 so it also runs where only PyTorch is installed:
@@ -74,6 +76,65 @@ def test_kernels_match_plain(dev, K, N, pad):
     assert _log_err(dd_to_f64(*ln), dd_to_f64(*tl.lognum_dd_plain(uh, ul, *ld, m_k))) <= 1e-12
     s_ref = dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k, return_sums=True))
     assert _rel(dd_to_f64(*s), s_ref) <= 1e-13
+    ln5 = dd_to_f64(*tl.lognum_fused_dd(uh, ul, gh, gl, m_k))
+    assert _log_err(ln5, dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k))) <= 1e-12
+
+
+def test_kernel_at_its_largest_clusters(dev):
+    """K5 at K1's limit, 8192 states: clusters of 16 blocks (non-portable)."""
+    uh, ul, gh, gl, m_k = _planes(8192, 65536, 8192, dev)
+    s = dd_to_f64(*tl.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True))
+    assert _rel(s, dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k, return_sums=True))) <= 1e-13
+    ln5 = dd_to_f64(*tl.lognum_fused_dd(uh, ul, gh, gl, m_k))
+    assert _log_err(ln5, dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k))) <= 1e-12
+
+
+def test_more_states_than_the_cluster_kernel_raise(dev):
+    uh, ul, gh, gl, m_k = _planes(8193, 64, 1, dev)
+    before = (tl.LOGNUM_FUSED_LAUNCHES, tw.WSUM_LAUNCHES)
+    with pytest.raises(RuntimeError, match="8192"):
+        tl.lognum_fused_dd(uh, ul, gh, gl, m_k)
+    assert (tl.LOGNUM_FUSED_LAUNCHES, tw.WSUM_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("K", [1024, 4096], ids=["clusters_of_2", "clusters_of_8"])
+def test_two_calls_give_the_same_bits(dev, K):
+    """No atomics; a K5 call launches no K1 (WSUM_LAUNCHES unmoved)."""
+    uh, ul, gh, gl, m_k = _planes(K, 20000, K, dev, pad_cols=5)
+    before = tw.WSUM_LAUNCHES
+    a = tl.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True)
+    b = tl.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert tw.WSUM_LAUNCHES == before
+
+
+def _far_row(K, N, kind, dev):
+    """Planes where row 3 is one the factorization T_kn r_n F_k cannot take:
+    its g lowered by 750 below the others ("lowered") or the -1e10 sentinel
+    over real u ("clash", a clash-level row), with m_3 its own lognum from
+    the plain twin, so that s_3 ~ 1 while its T_kn = exp(a_kn - m_n)
+    underflow."""
+    uh, ul, gh, gl, m_k = _planes(K, N, K + N, dev)
+    g = dd_to_f64(gh, gl)
+    g[3] = g[3] - 750.0 if kind == "lowered" else -1.0e10
+    gh, gl = dd_from_f64(g)
+    m_n = (gh[:, None] - uh).amax(dim=0).to(torch.float64)
+    T3 = torch.exp(dd_to_f64(gh, gl)[3] - dd_to_f64(uh[3], ul[3]) - m_n)
+    assert float(T3.max()) < torch.finfo(torch.float64).tiny
+    m_k[3] = dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k))[3].to(torch.float32)
+    return uh, ul, gh, gl, m_k
+
+
+@pytest.mark.parametrize("K", [1024, 3000])
+@pytest.mark.parametrize("kind", ["lowered", "clash"])
+def test_direct_form_rows_match_plain(dev, kind, K):
+    """The rows K5 takes in its direct form, against the plain twin: sums
+    1e-13 relative, logs 1e-12."""
+    uh, ul, gh, gl, m_k = _far_row(K, 8192, kind, dev)
+    s = dd_to_f64(*tl.lognum_fused_dd(uh, ul, gh, gl, m_k, return_sums=True))
+    s_ref = dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k, return_sums=True))
+    assert abs(float(s_ref[3]) - 1.0) <= 1e-5
+    assert _rel(s, s_ref) <= 1e-13
     ln5 = dd_to_f64(*tl.lognum_fused_dd(uh, ul, gh, gl, m_k))
     assert _log_err(ln5, dd_to_f64(*tl.lognum_fused_dd_plain(uh, ul, gh, gl, m_k))) <= 1e-12
 
