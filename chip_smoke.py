@@ -25,7 +25,10 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    and a masked column (d = 0) whose exp overflows adds exactly 0 and no
    NaN; wsum_dd's split route against K1 on the same planes; appended pad
    columns, an all-pad matrix, the launch counts; times of each kernel, of
-   the split route and of K1 at the slice's shape.
+   the split route and of K1 at the slice's shape, and of the PyTorch calls
+   that compute the shift's, K3's and K4's functions (torch.amax over k;
+   torch.logsumexp over k; over n with the (N,) m_n + log s_n), from the
+   planes (the kernels line's library_ms) and on an f64 u.
    The lognum family (K6 logden_dd, K7 lognum_dd, K5 lognum_fused_dd) at
    (1024, 65536), (5, 1003), (1, 1), (4096, 8192) + 77 pad columns,
    (3000, 4096), the flagship shard (1024, 249856) and the flagship shape:
@@ -131,6 +134,27 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    checkpoint resumed with skip_solve (f_k bit for bit, the same u_kn
    storage) and by a solve (f_k within 1e-10, no more polish iterations
    than phase 2's, one K1 launch each).
+8. FES.  (a) bench.py's fes_slice configuration at full size: 64 umbrella
+   windows (Ku = 100, centres 0.2 linspace(-3, 3)) on a quadratic base
+   (K0 = 20), 16,384 samples each (N = 1,048,576; 537 MB of float64 u_kn
+   built on the card from the seed's x_n), 100 bins over [min x, max x].
+   FES(u_kn, N_k) must share u_kn and take the dd route through K1 (one
+   launch per polish iteration).  The analytical histogram from the lowest
+   bin by the streamed augmented Gram: f_i and df_i finite on every
+   populated bin, RMSE < 0.05 against (K0/2) x^2 on |x| < 0.5, and df_i and
+   the all-differences df_ij within 1e-8 of the materializing branch's.
+   The bootstrap, B = 16, on the dd counts route: the median over bins of
+   df_boot / df_analytical in [0.8, 1.25], and 2 replicates again by the
+   per-replicate route within 1e-8.  The KDE at half a bin's bandwidth
+   (finite f_i at the bin centres; on a 4096-sample subset in 16-query
+   chunks within 1e-9 of the plain pairwise evaluation on the card), the
+   ML spline of fes_slice (finite, RMSE < 0.05), and a 200-step MC chain
+   with finite, ordered confidence intervals.  (b) The analytical histogram
+   on phase 7's flagship u_kn (target state K/2, 100 bins) by the streamed
+   branch: df_i finite on every populated bin, and the peak above the
+   resident u_kn below half of u_kn (the N x (K + nbins) weights would be
+   9 GB).  Each call on its own line with its wall, peak above resident and
+   K1 launches.
 
 Then the card, the kernels line and {"ok": true, "device": {...}} close the
 output.  Without a CUDA card, or without the repository beside this file,
@@ -160,6 +184,13 @@ FMA_STEPS = 2**16
 EXP_STEPS = 2**12
 PINNED = {"wsum_pinned_1024x512": (1024, 512, 8192), "wsum_pinned_4096x128": (4096, 128, 16384)}
 N_BOOT = 64
+# Phase 8: the umbrella FES configuration of bench.py's fes_slice (windows,
+# samples per window, bins), its bootstrap replicates and MC steps.
+FES_KW = 64
+FES_NPW = 16384
+FES_NBINS = 100
+FES_BOOT = 16
+FES_MC_STEPS = 200
 SOURCES = ("wsum", "wsum_split", "lognum", "roofline")
 LOG_ABS_TOL = 1.0e-12
 MESH_DF_TOL = 5.0e-10
@@ -443,6 +474,241 @@ def phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, 
         fail(f"phase 7 failed: {bad} ({checks})")
 
 
+def phase8(torch, np, u_flag, N_k_flag, x_flag):
+    """FES: (a) the umbrella configuration at full size, made on the card;
+    (b) the analytical histogram on the flagship u_flag (phase 7's, with its
+    samples x_flag), through the streamed augmented Gram."""
+    from pymbar_tpu_torch import FES
+    from pymbar_tpu_torch import kde as tkde
+    from pymbar_tpu_torch import mbar as tmbar
+    from pymbar_tpu_torch.ops import wsum
+
+    dev = u_flag.device
+
+    def run(label, fn, **fields):
+        """fn's result and its wall (synchronize-fenced); one line with the
+        wall, the peak device memory above what was resident before it and
+        K1's launches in it."""
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        wsum.WSUM_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - resident
+        emit(f"8_{label}", s=wall, peak_above_resident=peak, wsum_launches=wsum.WSUM_LAUNCHES,
+             **fields)
+        return out, wall, peak, wsum.WSUM_LAUNCHES
+
+    def nan_equal_max_diff(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            return float("inf")
+        return float(np.nanmax(np.abs(a - b)))
+
+    # (a) bench.py's fes_slice, after pymbar's umbrella-sampling-fes example:
+    # 64 harmonic windows (Ku = 100) on a quadratic base (K0 = 20), 16,384
+    # samples each; u_kn built on the card from the seed's x_n
+    K0, Ku = 20.0, 100.0
+    rng = np.random.RandomState(23)
+    centers = np.linspace(-3.0, 3.0, FES_KW) * 0.2
+    sigma = 1.0 / (K0 + Ku)
+    x_n = (sigma * Ku * centers[:, None]
+           + np.sqrt(sigma) * rng.standard_normal((FES_KW, FES_NPW))).reshape(-1)
+    u_n = (K0 / 2.0) * x_n**2
+    N_k = np.full(FES_KW, FES_NPW, dtype=np.int64)
+    x_dev = torch.as_tensor(x_n, device=dev)
+    u_kn = (K0 / 2.0) * x_dev[None, :] ** 2 + (Ku / 2.0) * (
+        x_dev[None, :] - torch.as_tensor(centers, device=dev)[:, None]) ** 2
+    del x_dev
+    edges = np.linspace(x_n.min() - 1e-6, x_n.max() + 1e-6, FES_NBINS + 1)
+    cent = 0.5 * (edges[1:] + edges[:-1])
+    pop = np.histogram(x_n, edges)[0] > 0
+    ref = (K0 / 2.0) * cent**2
+    inner = (np.abs(cent) < 0.5) & pop
+
+    def rmse(f_i):
+        f_c = f_i - f_i[inner].min()
+        return float(np.sqrt(np.mean((f_c[inner] - (ref[inner] - ref[inner].min())) ** 2)))
+
+    fes, init_s, init_peak, init_k1 = run("a_init", lambda: FES(u_kn, N_k),
+                                         u_kn_bytes=u_kn.nbytes, shape=list(u_kn.shape))
+    route, _ = mesh_route(fes.mbar)
+    info = fes.mbar.solver_results[0].get("info", {})
+    if fes.u_kn.data_ptr() != u_kn.data_ptr():
+        fail("FES copied u_kn instead of sharing it")
+    if route not in ("dd", "mesh") or init_k1 <= 0:
+        fail(f"the FES's MBAR took the {route} route with {init_k1} K1 launches")
+    if route == "dd" and init_k1 != info.get("polish_iterations"):
+        fail(f"K1 launched {init_k1} times in {info.get('polish_iterations')} polish iterations")
+    hist = dict(bin_edges=edges)
+
+    def histogram(reference_point):
+        fes.generate_fes(u_n, x_n, histogram_parameters=hist)
+        return fes.get_fes(cent, reference_point=reference_point, uncertainty_method="analytical")
+
+    # the streamed augmented Gram (u_kn is far above _AUG_STREAM_BYTES)
+    r, hist_s, hist_peak, _ = run("a_histogram", lambda: histogram("from-lowest"))
+    r_all, _, _, _ = run("a_histogram_all_differences", lambda: histogram("all-differences"))
+    gate = tmbar._AUG_STREAM_BYTES
+    tmbar._AUG_STREAM_BYTES = 2**62
+    try:
+        r_mat, _, mat_peak, _ = run("a_histogram_materialized", lambda: histogram("from-lowest"))
+        r_mat_all, _, _, _ = run("a_histogram_materialized_all_differences",
+                                 lambda: histogram("all-differences"))
+    finally:
+        tmbar._AUG_STREAM_BYTES = gate
+    checks = dict(
+        route=route, init_k1=init_k1, polish_iterations=info.get("polish_iterations"),
+        populated_bins=int(pop.sum()),
+        f_i_finite=bool(np.isfinite(r["f_i"][pop]).all()),
+        df_i_finite=bool(np.isfinite(r["df_i"][pop]).all()),
+        histogram_rmse=rmse(r["f_i"]),
+        df_i_streamed_vs_materialized=nan_equal_max_diff(r["df_i"], r_mat["df_i"]),
+        f_i_streamed_vs_materialized=nan_equal_max_diff(r["f_i"], r_mat["f_i"]),
+        df_ij_streamed_vs_materialized=nan_equal_max_diff(r_all["df_ij"], r_mat_all["df_ij"]),
+        materialized_peak_above_resident=mat_peak,
+    )
+
+    # bootstrap, B = FES_BOOT: the counts route, then 2 replicates again by
+    # the per-replicate route
+    def bootstrap():
+        fes.generate_fes(u_n, x_n, histogram_parameters=hist, n_bootstraps=FES_BOOT,
+                         seed=SEED % 2**31)
+        return fes.get_fes(cent, reference_point="from-lowest", uncertainty_method="bootstrap")
+
+    rb, _, _, _ = run("a_histogram_bootstrap", bootstrap, n_bootstraps=FES_BOOT)
+    expected_route = "counts" if route == "dd" else "replicate"
+    (f_rep, n_fail), _, _, _ = run("a_bootstrap_replicate_route_2", lambda: fes._replicate_free_energies(
+        fes.bootstrap_indices[:2], "replicate"))
+    live = pop & (r["df_i"] > 0)
+    checks.update(
+        bootstrap_route=fes.bootstrap_route,
+        df_boot_over_analytical_median=float(np.median(rb["df_i"][live] / r["df_i"][live])),
+        counts_vs_replicate_route=float(np.abs(f_rep - fes.f_k_boots[:2]).max()),
+        replicate_route_n_fail=n_fail,
+    )
+
+    # KDE at half a bin's bandwidth; then the chunked KDE against the plain
+    # evaluation on the card (pairwise differences, no chunks) on a
+    # 4096-sample subset, in 16-query chunks
+    bw = 0.5 * (edges[1] - edges[0])
+
+    def kde():
+        fes.generate_fes(u_n, x_n, fes_type="kde", kde_parameters={"bandwidth": bw})
+        return fes.get_fes(cent, reference_point="from-lowest")
+
+    rk, _, _, _ = run("a_kde", kde, bandwidth=bw)
+    sub = np.random.RandomState(SEED % 2**31).choice(x_n.size, 4096, replace=False)
+    w_sub = fes.w_n[sub]
+    budget = tkde._PAIRWISE_BUDGET_BYTES
+    tkde._PAIRWISE_BUDGET_BYTES = 16 * 16 * sub.size
+    try:
+        got = tkde.GaussianKDE(bandwidth=bw, device=dev).fit(
+            x_n[sub], sample_weight=w_sub).score_samples(cent)
+    finally:
+        tkde._PAIRWISE_BUDGET_BYTES = budget
+    xq = torch.as_tensor(cent, device=dev)[:, None]
+    xs = torch.as_tensor(x_n[sub], device=dev)[None, :]
+    lw = torch.log(torch.as_tensor(w_sub / w_sub.sum(), device=dev))[None, :]
+    plain = (torch.logsumexp(lw - 0.5 * (xq - xs) ** 2 / bw**2, dim=1)
+             - np.log(bw * np.sqrt(2.0 * np.pi))).cpu().numpy()
+    checks.update(kde_f_i_finite=bool(np.isfinite(rk["f_i"]).all()), kde_rmse=rmse(rk["f_i"]),
+                  kde_vs_plain_4096=float(np.abs(got - plain).max()))
+
+    # the ML spline of bench.py's fes_slice, then a short MC chain
+    def bias(k):
+        return lambda x: (Ku / 2.0) * float(np.dot(x - centers[k], x - centers[k]))
+
+    spline = dict(
+        spline_weights="unbiasedstate", nspline=6, spline_initialize="explicit", xinit=cent,
+        yinit=ref - ref.min(), xrange=[edges[0], edges[-1]],
+        fkbias=[bias(k) for k in range(FES_KW)], kdegree=3,
+        optimization_algorithm="Newton-CG", optimize_options={"disp": False, "tol": 1e-6},
+        objective="ml", map_data=None,
+    )
+
+    def fit_spline():
+        fes.generate_fes(u_n, x_n, fes_type="spline", spline_parameters=spline)
+        return fes.get_fes(cent, reference_point="from-lowest")
+
+    rs, _, _, _ = run("a_spline", fit_spline)
+
+    def mc():
+        np.random.seed(SEED % 2**31)
+        fes.sample_parameter_distribution(
+            x_n, mc_parameters=dict(niterations=FES_MC_STEPS, sample_every=10, print_every=10**9),
+            decorrelate=False, verbose=False)
+        return fes.get_confidence_intervals(cent, 2.5, 97.5)
+
+    ci, _, _, _ = run("a_mc", mc, niterations=FES_MC_STEPS)
+    checks.update(
+        spline_f_i_finite=bool(np.isfinite(rs["f_i"]).all()), spline_rmse=rmse(rs["f_i"]),
+        spline_aic=float(fes.get_information_criteria("aic")),
+        mc_acceptance=float(fes.get_mc_data()["acceptance_ratio"]),
+        mc_ci_finite=bool(all(np.isfinite(ci[k]).all() for k in ("plow", "phigh", "median"))),
+        mc_ci_ordered=bool(np.all(ci["phigh"] >= ci["plow"] - 1e-12)),
+    )
+    emit("8a_checks", **checks)
+    bad = [
+        name for name, ok in (
+            ("finite f_i, df_i on populated bins", checks["f_i_finite"] and checks["df_i_finite"]),
+            ("histogram RMSE < 0.05", checks["histogram_rmse"] < 0.05),
+            ("streamed vs materialized df_i, df_ij",
+             checks["df_i_streamed_vs_materialized"] <= 1e-8
+             and checks["df_ij_streamed_vs_materialized"] <= 1e-8
+             and checks["f_i_streamed_vs_materialized"] <= 1e-9),
+            ("bootstrap route", checks["bootstrap_route"] == expected_route),
+            ("median df_boot / df_analytical in [0.8, 1.25]",
+             0.8 <= checks["df_boot_over_analytical_median"] <= 1.25),
+            ("counts vs per-replicate route", checks["counts_vs_replicate_route"] <= 1e-8),
+            ("KDE finite", checks["kde_f_i_finite"]),
+            # the Gram expansion's cancellation, ~eps x^2 / h^2, against
+            # direct differences: tests/test_kde.py:31's bar
+            ("KDE vs plain", checks["kde_vs_plain_4096"] <= 1e-9),
+            ("spline finite", checks["spline_f_i_finite"]),
+            ("spline RMSE < 0.05", checks["spline_rmse"] < 0.05),
+            ("MC confidence intervals", checks["mc_ci_finite"] and checks["mc_ci_ordered"]),
+        ) if not ok
+    ]
+    if bad:
+        fail(f"phase 8a failed: {bad} ({checks})")
+    del fes, u_kn, r_mat, r_mat_all
+    torch.cuda.empty_cache()
+
+    # (b) the flagship histogram: phase 7's resident u_kn, its samples, the
+    # target state K/2, 100 bins, the streamed branch; the peak above the
+    # resident u_kn must stay below half of it (no N x (K + nbins) matrix)
+    mid = u_flag.shape[0] // 2
+    fes, _, _, b_k1 = run("b_init", lambda: FES(u_flag, N_k_flag), u_kn_bytes=u_flag.nbytes,
+                          shape=list(u_flag.shape))
+    xb = x_flag.cpu().numpy()
+    edges_b = np.linspace(xb.min() - 1e-6, xb.max() + 1e-6, FES_NBINS + 1)
+    cent_b = 0.5 * (edges_b[1:] + edges_b[:-1])
+    pop_b = np.histogram(xb, edges_b)[0] > 0
+
+    def flagship_histogram():
+        fes.generate_fes(u_flag[mid], x_flag, histogram_parameters=dict(bin_edges=edges_b))
+        return fes.get_fes(cent_b, reference_point="from-lowest", uncertainty_method="analytical")
+
+    rb, b_s, b_peak, _ = run("b_histogram", flagship_histogram, nbins=FES_NBINS)
+    checks_b = dict(
+        init_k1=b_k1, populated_bins=int(pop_b.sum()),
+        df_i_finite=bool(np.isfinite(rb["df_i"][pop_b]).all()),
+        f_i_finite=bool(np.isfinite(rb["f_i"][pop_b]).all()), peak_above_resident=b_peak,
+        half_u_kn=u_flag.nbytes // 2,
+        aug_w_bytes=u_flag.shape[1] * (u_flag.shape[0] + FES_NBINS) * 8,
+    )
+    emit("8b_checks", **checks_b)
+    if not (checks_b["df_i_finite"] and checks_b["f_i_finite"] and b_k1 > 0
+            and b_peak < u_flag.nbytes // 2):
+        fail(f"phase 8b failed: {checks_b}")
+    del fes
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -720,14 +986,60 @@ def main():
         k1_slice_ms = median_ms(torch, lambda: wsum.wsum_dd(*planes))
     finally:
         wsum._SPLIT_ROUTE_K = gate
-    del planes, uh, ul, gh, gl, m, dh, dl
+    # One PyTorch call computes each function: the shift is torch.amax over
+    # k of g_hi - u_hi; K3's log s_n + m_n is torch.logsumexp over k of
+    # g - u; K4's log S_k is torch.logsumexp over n of g - u - L_n with the
+    # (N,) L_n = m_n + log s_n.  Timed from the planes (the combine in
+    # place, so the slice's 21.5 GB input and the call's own temporary fit
+    # beside the planes: library_ms), then on an f64 u built once, with the
+    # planes freed.
+    g64 = dd_to_f64(gh, gl)
+    s64 = dd_to_f64(dh, dl)
+    L = m.to(torch.float64) + torch.log(s64)
+
+    def minus_u(pre=None):
+        """g - u (- L) from the planes, in one float64 temporary."""
+        a = uh.to(torch.float64).neg_().add_(g64[:, None]).sub_(ul)
+        return a if pre is None else a.sub_(pre[None, :])
+
+    split_lib = dict(
+        column_shift=lambda: torch.amax(gh[:, None] - uh, dim=0),
+        denom_sums_dd=lambda: torch.logsumexp(minus_u(), dim=0),
+        wsum_denom_dd=lambda: torch.logsumexp(minus_u(L), dim=1),
+    )
+    split_names = ("column_shift", "denom_sums_dd", "wsum_denom_dd")
+    S_k4 = dd_to_f64(*wsum_split.wsum_denom_dd(uh, ul, gh, gl, m, dh, dl))
+    lib_vals = {k: split_lib[k]() for k in split_names}
+    split_lib_err = dict(
+        column_shift=float((lib_vals["column_shift"] - m).abs().max()),
+        denom_sums_dd=float((lib_vals["denom_sums_dd"] - L).abs().max()),
+        wsum_denom_dd=float((lib_vals["wsum_denom_dd"] - torch.log(S_k4)).abs().max()),
+    )
+    del lib_vals, S_k4
+    torch.cuda.empty_cache()
+    split_lib_planes = {k: median_ms(torch, split_lib[k]) for k in split_names}
+    u64 = uh.to(torch.float64).add_(ul)  # dd_to_f64 without its two temporaries
+    del planes, uh, ul
+    torch.cuda.empty_cache()
+    split_lib_f64 = dict(
+        column_shift=median_ms(torch, lambda: torch.amax(gh.to(torch.float64)[:, None] - u64,
+                                                         dim=0)),
+        denom_sums_dd=median_ms(torch, lambda: torch.logsumexp(g64[:, None] - u64, dim=0)),
+        wsum_denom_dd=median_ms(torch, lambda: torch.logsumexp(
+            (g64[:, None] - u64).sub_(L[None, :]), dim=1)),
+    )
+    for k in split_names:
+        times[k] = (*times[k], split_lib_planes[k])
+    del u64, gh, gl, m, dh, dl, g64, s64, L
     torch.cuda.empty_cache()
     emit("1_split_kernels", checks=split_checks,
-         max_abs_err={k: err[k] for k in ("column_shift", "denom_sums_dd", "wsum_denom_dd")},
+         max_abs_err={k: err[k] for k in split_names},
          shape=[SLICE_K, N_slice],
-         ms={k: times[k][0] for k in ("column_shift", "denom_sums_dd", "wsum_denom_dd")},
-         plain_ms={k: times[k][1] for k in ("column_shift", "denom_sums_dd", "wsum_denom_dd")},
-         split_route_ms=route_ms, k1_ms=k1_slice_ms)
+         ms={k: times[k][0] for k in split_names},
+         plain_ms={k: times[k][1] for k in split_names},
+         split_route_ms=route_ms, k1_ms=k1_slice_ms,
+         library_ms_from_planes=split_lib_planes, library_ms_f64_u=split_lib_f64,
+         library_max_abs_diff_vs_kernel=split_lib_err)
 
     # ---- phase 1c: the lognum family against its plain versions
     ln_names = ("logden_dd", "lognum_dd", "lognum_fused_dd")
@@ -1501,7 +1813,10 @@ def main():
 
     phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, boot_mbar, ck_path)
     ck_dir.cleanup()
-    del u_kn, x_n, boot_mbar
+    del boot_mbar
+    torch.cuda.empty_cache()
+    phase8(torch, np, u_kn, N_k, x_n)
+    del u_kn, x_n
     torch.cuda.empty_cache()
 
     # ---- the kernels line: launches from each one's main-path run

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
     python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap] [diagnostics]
-                                       [expectations] [clusters]
+                                       [expectations] [clusters] [fes]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -67,6 +67,15 @@ fill, K1's and K5's (its second instantiation) medians of 5 fenced calls
 in turns (K1, K5, K5, K1), their element rates per SM, and K1's pinned
 ceiling at the same K (``roofline.measure_wsum_ceiling`` over a (K,
 2^19 / K) tile, 4 MB of planes in L2, 2^32 elements).
+
+``fes`` runs bench.py's fes_slice configuration (64 umbrella windows x
+16,384 samples, 537 MB of u_kn made on the card): warm walls (three after
+one warm-up) of ``FES(u_kn, N_k)``, the histogram's ``generate_fes`` and
+its steps (the target state's log weights on the card, the host
+bookkeeping), the analytical ``get_fes`` and its steps (the streamed
+augmented Gram, the rank-nnz Theta), the KDE's generate + get, and one
+profiler trace of FES + histogram; then the histogram on the flagship's
+u_kn (target state K/2, 100 bins): walls and a trace.
 """
 
 import json
@@ -488,6 +497,110 @@ def profile_expectations(torch, card):
     torch.cuda.empty_cache()
 
 
+def umbrella(torch, dev, KW=64, NPW=16384, K0=20.0, Ku=100.0):
+    """bench.py's fes_slice configuration: 64 harmonic windows on a
+    quadratic base, u_kn made on the card from the seed's x_n; with u_n,
+    x_n, N_k and 100 bin edges over [min x, max x]."""
+    import numpy as np
+
+    rng = np.random.RandomState(23)
+    centers = np.linspace(-3.0, 3.0, KW) * 0.2
+    sigma = 1.0 / (K0 + Ku)
+    x_n = (sigma * Ku * centers[:, None]
+           + np.sqrt(sigma) * rng.standard_normal((KW, NPW))).reshape(-1)
+    x = torch.as_tensor(x_n, device=dev)
+    u = (K0 / 2.0) * x[None, :] ** 2 + (Ku / 2.0) * (
+        x[None, :] - torch.as_tensor(centers, device=dev)[:, None]) ** 2
+    edges = np.linspace(x_n.min() - 1e-6, x_n.max() + 1e-6, 101)
+    return u, (K0 / 2.0) * x_n**2, x_n, np.full(KW, NPW), edges
+
+
+def profile_fes(torch, card):
+    """FES at the umbrella configuration and the flagship histogram: warm
+    walls of each call and of the histogram's steps, then profiler traces."""
+    import numpy as np
+
+    from pymbar_tpu_torch import FES
+    from pymbar_tpu_torch import fes as tfes
+
+    u, u_n, x_n, N_k, edges = umbrella(torch, "cuda")
+    cent = 0.5 * (edges[1:] + edges[:-1])
+    hist = dict(bin_edges=edges)
+    fes = FES(u, N_k)
+    state = {}
+
+    def gram():
+        hd = fes.histogram_data
+        state["nb"] = len(hd["bin_order"])
+        state["gram"] = tfes._hist_aug_gram(
+            fes.u_kn, fes.u_n, fes._bin_columns(hd), hd["f"],
+            fes.mbar.states_with_samples, fes.mbar.f_k, fes.mbar.N_k, state["nb"])
+
+    def theta():
+        N_aug = np.concatenate([fes.mbar.N_k, np.zeros(state["nb"], np.int64)])
+        return fes.mbar._theta_svd_ew_lowrank(state["gram"], N_aug).cpu().numpy()
+
+    steps = {
+        "fes_init_s": lambda: FES(u, N_k),
+        "histogram_generate_s": lambda: fes.generate_fes(u_n, x_n, histogram_parameters=hist),
+        "histogram_log_weights_s": lambda: fes._unnormalized_log_weights(None, fes.mbar.f_k),
+        "histogram_bookkeeping_s": lambda: fes._generate_fes_histogram(0, x_n, fes.w_n,
+                                                                       state["log_w"]),
+        "histogram_get_analytical_s": lambda: fes.get_fes(
+            cent, reference_point="from-lowest", uncertainty_method="analytical"),
+        "histogram_streamed_gram_s": gram,
+        "histogram_theta_s": theta,
+        "kde_generate_and_get_s": lambda: (
+            fes.generate_fes(u_n, x_n, fes_type="kde",
+                             kde_parameters={"bandwidth": 0.5 * (edges[1] - edges[0])}),
+            fes.get_fes(cent, reference_point="from-lowest")),
+    }
+    fes.generate_fes(u_n, x_n, histogram_parameters=hist)
+    state["log_w"] = fes._unnormalized_log_weights(None, fes.mbar.f_k)
+    walls = {name: [] for name in steps}
+    for rep in range(4):
+        # each histogram step reads what histogram_generate_s leaves
+        for name, fn in steps.items():
+            wall = timed(torch, fn)[0]
+            if rep:
+                walls[name].append(wall)
+    print(json.dumps(dict(config="fes_umbrella", card=card, shape=list(u.shape),
+                          u_kn_bytes=u.nbytes, walls=walls)), flush=True)
+
+    def histogram_flow():
+        f = FES(u, N_k)
+        f.generate_fes(u_n, x_n, histogram_parameters=hist)
+        return f.get_fes(cent, reference_point="from-lowest", uncertainty_method="analytical")
+
+    unprofiled = sorted(timed(torch, histogram_flow)[0] for _ in range(3))[1]
+    print(json.dumps(dict(config="fes_umbrella", card=card, call="FES + histogram (analytical)",
+                          **trace_kernels(torch, histogram_flow, unprofiled))), flush=True)
+    del fes, u, state
+    torch.cuda.empty_cache()
+
+    # the flagship histogram: oscillators' u_kn, target state K/2
+    uf, N_kf, xf = oscillators(torch, 1024, 976, "cuda", with_x=True)
+    xf_n = xf.cpu().numpy()
+    uf_n = uf[uf.shape[0] // 2].cpu().numpy()
+    ef = np.linspace(xf_n.min() - 1e-6, xf_n.max() + 1e-6, 101)
+    cf = 0.5 * (ef[1:] + ef[:-1])
+
+    def flagship_flow():
+        f = FES(uf, N_kf)
+        f.generate_fes(uf_n, xf_n, histogram_parameters=dict(bin_edges=ef))
+        return f.get_fes(cf, reference_point="from-lowest", uncertainty_method="analytical")
+
+    flag_walls = [timed(torch, flagship_flow)[0] for _ in range(4)][1:]
+    print(json.dumps(dict(config="fes_flagship_histogram", card=card, shape=list(uf.shape),
+                          walls=flag_walls)), flush=True)
+    print(json.dumps(dict(config="fes_flagship_histogram", card=card,
+                          call="FES + histogram (analytical)",
+                          **trace_kernels(torch, flagship_flow, sorted(flag_walls)[1]))),
+          flush=True)
+    del uf, xf
+    torch.cuda.empty_cache()
+
+
 def profile_clusters(torch, card):
     """The cluster kernel by cluster size: occupancy, K1, K5, pinned ceiling."""
     from pymbar_tpu_torch.ops import lognum, roofline, wsum
@@ -541,7 +654,8 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics,
-             "expectations": profile_expectations, "clusters": profile_clusters}
+             "expectations": profile_expectations, "clusters": profile_clusters,
+             "fes": profile_fes}
     names = sys.argv[1:] or [*CONFIGS, *extra]
     unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:

@@ -17,8 +17,10 @@ and ``compute_expectations``, ``compute_multiple_expectations``,
 ``compute_covariance_of_sums``), the two-state estimators ``bar``,
 ``bar_overlap``, ``bar_zero``, ``exp`` and ``exp_gauss``, the host modules
 ``timeseries``, ``testsystems``, ``confidenceintervals`` and ``utils``, and
-``checkpoint`` (``save_mbar``, ``load_mbar_state``, ``resume_mbar``).
-``FES`` is still to be ported.
+``checkpoint`` (``save_mbar``, ``load_mbar_state``, ``resume_mbar``), and
+``FES`` (histogram, weighted KDE, spline and MC surfaces; its KDE is
+:class:`pymbar_tpu_torch.kde.GaussianKDE`), imported on first access so
+that ``import pymbar_tpu_torch`` does not load it.
 """
 
 from pymbar_tpu_torch import checkpoint  # noqa: F401
@@ -29,8 +31,20 @@ from pymbar_tpu_torch import utils  # noqa: F401
 from pymbar_tpu_torch.mbar import MBAR
 from pymbar_tpu_torch.other_estimators import bar, bar_overlap, bar_zero, exp, exp_gauss
 
+
+def __getattr__(name):
+    # FES pulls in the surfaces stack (histogram/KDE/spline/MC and scipy's
+    # optimizers): import it lazily so `import pymbar_tpu_torch` stays light.
+    if name == "FES":
+        from pymbar_tpu_torch.fes import FES
+
+        return FES
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "MBAR",
+    "FES",
     "bar",
     "bar_overlap",
     "bar_zero",

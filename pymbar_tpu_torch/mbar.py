@@ -37,6 +37,7 @@ from pymbar_tpu_torch.ops.mbar_core import (
     mbar_gram_normalization,
     mbar_log_W_nk,
 )
+from pymbar_tpu_torch.ops.logsumexp import logsumexp
 from pymbar_tpu_torch.other_estimators import bar
 from pymbar_tpu_torch.parallel.sharding import default_mesh, sharded_solve_mbar_for_all_states
 from pymbar_tpu_torch.solvers import (
@@ -103,6 +104,20 @@ def bootstrap_counts(bootstrap_rints, n_total):
             counts = counts.astype(np.float32)
         counts[b] = row
     return counts
+
+
+def _unnormalized_log_weights(u_kn, u_n, N_k, f_k):
+    """log w_n of a target state u_n, -logsumexp_k[f_k + u_n - u_kn] weighted
+    by N_k, as an (N,) float64 tensor on u_kn's device: one pass over u_kn's
+    column chunks, each column reduced alone (reference mbar.py:1919-1934)."""
+    dev = u_kn.device
+    f = torch.as_tensor(np.asarray(f_k, dtype=np.float64), device=dev)[:, None]
+    b = torch.as_tensor(np.asarray(N_k, dtype=np.float64), device=dev)[:, None]
+    u_n = torch.as_tensor(u_n, dtype=torch.float64, device=dev)
+    out = torch.empty(u_kn.shape[1], dtype=torch.float64, device=dev)
+    for s, e in _col_chunks(u_kn):
+        out[s:e] = -logsumexp(f + u_n[None, s:e] - u_kn[:, s:e], axis=0, b=b)
+    return out
 
 
 def _same_device(a, b):
@@ -1911,6 +1926,12 @@ class MBAR:
         w = (u_kn[ra, c] - u_kn[rb, c]).cpu().numpy()
         return pairs, [(w[bounds[2 * i]:bounds[2 * i + 1]], w[bounds[2 * i + 1]:bounds[2 * i + 2]])
                        for i in range(len(pairs))]
+
+    def _computeUnnormalizedLogWeights(self, u_n):
+        """log w_n for a target potential u_n (numpy or a tensor):
+        -logsumexp_k[f_k + u_n - u_kn] weighted by N_k (reference
+        mbar.py:1919-1934), one reduction on u_kn's device.  Returns numpy."""
+        return _unnormalized_log_weights(self.u_kn, u_n, self.N_k, self.f_k).cpu().numpy()
 
     def _initialize_with_bar(self, u_kn, f_k_init=None):
         """Chain pairwise BAR along adjacent sampled states (reference

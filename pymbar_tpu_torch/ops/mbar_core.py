@@ -52,10 +52,11 @@ _CHUNK_BYTES = 512 * 2**20
 _PAD_THRESHOLD = 5.0e9
 
 
-def _col_chunks(u):
-    """(start, stop) column ranges of at most ``_CHUNK_BYTES`` each."""
+def _col_chunks(u, extra_rows=0):
+    """(start, stop) column ranges of at most ``_CHUNK_BYTES`` each, counting
+    ``extra_rows`` more rows of u's width that the caller builds per chunk."""
     K, N = u.shape
-    width = max(1, _CHUNK_BYTES // max(1, K * u.element_size()))
+    width = max(1, _CHUNK_BYTES // max(1, (K + extra_rows) * u.element_size()))
     return [(s, min(N, s + width)) for s in range(0, N, width)]
 
 
