@@ -156,8 +156,34 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    9 GB).  Each call on its own line with its wall, peak above resident and
    K1 launches.
 
-Then the card, the kernels line and {"ok": true, "device": {...}} close the
-output.  Without a CUDA card, or without the repository beside this file,
+9. The bootstraps that are not the flagship's counts route, each call on
+   its own line with its wall, the peak device memory of each card and K1's
+   launches.  (a) Phase 5's u_kn through MBAR(u_kn, N_k, mesh=M,
+   n_bootstraps=64, rseed=SEED), M every card when there are several, else
+   4 shards of cuda:0: it must take the mesh bootstrap (mbar.mesh is M,
+   bootstrap_at_floor set, n_fail 0) with f_k within 5e-10 of phase 2's,
+   f_k_boots within 5e-10 of phase 5's single-card replicates (same seed,
+   same counts), the median sigma_boot / sigma_asym in [0.8, 1.25] and
+   |z| < 6; sharded_bootstrap_polish_dd in serial mode on the first 4
+   replicates within 5e-11 of the batched ones, with K1 launched shards x
+   polish iterations times.  Reps/s and the walls.  The stop rule across
+   routes: the mesh engine from phase 5's base solution and factor, the
+   single-card engine from the mesh's, and both exact phases from one start
+   (the single card's float32 fast phase): from one base each engine must
+   count the other's noise-floor stops, and from one start both must stop
+   every replicate alike (the same stops, the same iterations).  (b) 16 oscillators x
+   3,000 samples (6.1 MB, below the dd gate), B = 100: one
+   batched_bootstrap_solve call; the first 8 replicates within 1e-9 of the
+   sequential route, whose 100 solves are timed too.  (c) Phase 8's
+   umbrella configuration plus its unbiased state (K0/2) x^2 as a 65th,
+   unsampled state (545 MB), B = 16: the dd base solve, then the batched
+   route (the chunk width it took from free memory recorded); 2 replicates
+   within 1e-9 of the sequential route.  (d) solver_protocol anderson and
+   BFGS on (b)'s problem: f_k within 1e-8 of its adaptive solve, with
+   anderson's iterations, BFGS's iterations and objective evaluations.
+
+Then the card, the kernels line (K1's launches: phase 2's MBAR and phase
+9 (a)'s) and {"ok": true, "device": {...}} close the output.  Without a CUDA card, or without the repository beside this file,
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
@@ -191,6 +217,10 @@ FES_NPW = 16384
 FES_NBINS = 100
 FES_BOOT = 16
 FES_MC_STEPS = 200
+# Phase 9 (b): an alchemical ladder's size, below the dd gate (6.1 MB).
+SMALL_K = 16
+SMALL_NPK = 3000
+SMALL_BOOT = 100
 SOURCES = ("wsum", "wsum_split", "lognum", "roofline")
 LOG_ABS_TOL = 1.0e-12
 MESH_DF_TOL = 5.0e-10
@@ -709,6 +739,294 @@ def phase8(torch, np, u_flag, N_k_flag, x_flag):
     torch.cuda.empty_cache()
 
 
+def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
+    """(a) The mesh bootstrap at the flagship, (b) the small-problem batched
+    bootstrap, (c) the umbrella configuration with its unbiased state added
+    unsampled, (d) anderson and BFGS.  ``single5``: phase 5's single-card
+    base solution, factor, replicates and their stops at tol 1e-12.
+    Returns K1's launches in (a)'s MBAR, the main path's run of this
+    phase."""
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch import solvers as tsolvers
+    from pymbar_tpu_torch.mbar import bootstrap_counts
+    from pymbar_tpu_torch.ops import wsum
+    from pymbar_tpu_torch.parallel import sharding
+    from pymbar_tpu_torch.solvers import BOOTSTRAP_SOLVER_PROTOCOL, solve_mbar_for_all_states
+    from pymbar_tpu_torch import solvers_large
+    from pymbar_tpu_torch.solvers_large import bootstrap_polish_dd, dev_split_planes
+
+    dev = u_flag.device
+    n_cards = torch.cuda.device_count()
+    mesh = (sharding.default_mesh() if n_cards >= 2
+            else sharding.default_mesh(4, device="cuda:0"))
+    P = len(mesh.devices)
+    cards = sorted({dev.index} | {d.index for d in mesh.devices})
+
+    def run(label, fn, **fields):
+        """fn's result and wall (synchronize-fenced); one line with the wall,
+        the peak device memory of each card and K1's launches in it."""
+        sync_all(torch)
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        wsum.WSUM_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(torch)
+        wall = time.perf_counter() - t0
+        k1 = wsum.WSUM_LAUNCHES
+        peak = {f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards}
+        emit(f"9{label}", s=wall, max_memory_allocated=peak, wsum_launches=k1, **fields)
+        return out, wall, k1
+
+    def wrapped(module, name, record):
+        """Replace module.name by a wrapper that records each call's wall and
+        result through record(wall, out); returns the original."""
+        fn = getattr(module, name)
+
+        def wrapper(*a, **k):
+            sync_all(torch)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync_all(torch)
+            record(time.perf_counter() - t0, out)
+            return out
+
+        setattr(module, name, wrapper)
+        return fn
+
+    # (a) the flagship through MBAR(mesh=, n_bootstraps=64): the base solve
+    # and every replicate on the mesh's planes (K1 once per shard per polish
+    # iteration of the base solve and of any retry)
+    boot = {}
+    polish = wrapped(sharding, "sharded_bootstrap_polish_dd",
+                     lambda wall, out: boot.update(wall=wall, n_fail=out[1], info=out[2]))
+    try:
+        mbar, init_s, mesh_k1 = run(
+            "a_mesh_bootstrap_mbar",
+            lambda: MBAR(u_flag, N_k_flag, mesh=mesh, n_bootstraps=N_BOOT, rseed=SEED),
+            shards=P, mesh=[str(d) for d in mesh.devices])
+    finally:
+        sharding.sharded_bootstrap_polish_dd = polish
+    info = mbar.solver_results[0]["info"]
+    iters = info["polish_iterations"]
+    res, fe_s, _ = run("a_mesh_bootstrap_free_energies",
+                       lambda: mbar.compute_free_energy_differences(uncertainty_method="bootstrap"))
+    sigma_boot = res["dDelta_f"][0, 1:]
+    ratio = float(np.median(sigma_boot / sigma_asym))
+    summary = dict(
+        route=mesh_route(mbar)[0], shards=P, n_bootstraps=N_BOOT, init_s=init_s,
+        base_phase1_s=info["phase1_s"], base_phase2_s=info["phase2_s"],
+        base_polish_iterations=iters, bootstrap_s=boot.get("wall"),
+        reps_per_s=N_BOOT / boot["wall"] if boot else None, n_fail=boot.get("n_fail"),
+        n_at_floor=boot["info"]["n_at_floor"] if boot else None,
+        n_tol_converged=boot["info"]["n_tol_converged"] if boot else None,
+        free_energies_s=fe_s, wsum_launches=mesh_k1,
+        f_k_max_err_vs_phase2=float(np.abs(mbar.f_k - f_flag).max()),
+        f_k_boots_max_err_vs_phase5=float(np.abs(mbar.f_k_boots - single5["f_boots"]).max()),
+        sigma_boot_over_asym_median=ratio, max_abs_z=max_abs_z(res, fa_flag),
+    )
+    emit("9a_mesh_bootstrap", **summary)
+    if mbar.mesh is not mesh or mbar.bootstrap_at_floor is None or not boot:
+        fail(f"MBAR(mesh=, n_bootstraps=) did not take the mesh bootstrap ({summary})")
+    if summary["n_fail"] != 0 or not info["converged"] or mesh_k1 < P * iters:
+        fail(f"mesh bootstrap: n_fail, convergence or K1 launches off ({summary})")
+    if not (summary["f_k_max_err_vs_phase2"] <= MESH_DF_TOL
+            and summary["f_k_boots_max_err_vs_phase5"] <= MESH_DF_TOL):
+        fail(f"mesh bootstrap differs from the single card: {summary}")
+    if not 0.8 <= ratio <= 1.25:
+        fail(f"mesh bootstrap: median sigma_boot / sigma_asym = {ratio:.3f}")
+    check_free_energies(res, summary["max_abs_z"], "mesh bootstrap")
+
+    uh, ul = dev_split_planes(u_flag)
+    uh_s, ul_s, n_pad = sharding.shard_dd_planes(uh, ul, mesh)
+    counts4 = bootstrap_counts(mbar.bootstrap_rints[:4], mbar.N)
+    (fs, nfs, bis), serial_s, serial_k1 = run(
+        "a_mesh_bootstrap_serial_first4",
+        lambda: sharding.sharded_bootstrap_polish_dd(
+            uh_s, ul_s, N_k_flag, mbar.f_k, info["hinv"], counts4, mesh, mode="serial"))
+    serial_dev = float(np.abs(fs - mbar.f_k_boots[:4]).max())
+    emit("9a_mesh_bootstrap_serial", n_fail=nfs, polish_iterations=bis["polish_iterations"].tolist(),
+         wsum_launches=serial_k1, max_dev_vs_batched=serial_dev)
+    if not (nfs == 0 and serial_dev <= 5.0e-11):
+        fail(f"mesh serial replicates differ from batched by {serial_dev:.3e} (n_fail {nfs})")
+    if serial_k1 != P * int(bis["polish_iterations"].sum()):
+        fail(f"mesh serial mode launched K1 {serial_k1} times for {P} shards x "
+             f"{bis['polish_iterations'].tolist()} polish iterations")
+
+    # the stop rule across routes: each engine from the other's base
+    # solution and factor, then the exact phase from one start on both
+    counts = bootstrap_counts(mbar.bootstrap_rints, mbar.N)
+    (fx, nfx, bix), _s, _k = run(
+        "a_mesh_engine_from_phase5_base",
+        lambda: sharding.sharded_bootstrap_polish_dd(uh_s, ul_s, N_k_flag, single5["f_k"],
+                                                     single5["hinv"], counts, mesh))
+    (fy, nfy, biy), _s, _k = run(
+        "a_single_engine_from_mesh_base",
+        lambda: bootstrap_polish_dd(uh, ul, N_k_flag, mbar.f_k, info["hinv"], counts))
+    K, N = uh.shape
+    N_k64 = torch.as_tensor(np.asarray(N_k_flag, dtype=np.float64), device=dev)
+    f0 = torch.as_tensor(single5["f_k"] - single5["f_k"][0], device=dev)
+    hinv5 = torch.as_tensor(single5["hinv"], dtype=torch.float64, device=dev)
+    C = torch.as_tensor(counts.astype(solvers_large._counts_upload_dtype(counts)), device=dev)
+    n_chunk = solvers_large._batch_chunk_width(K, N)
+    F, _it = solvers_large._polish_while_dd_batch_fast(uh, ul, C, N_k64, f0, hinv5, 1.0, n_chunk)
+    one = solvers_large._polish_while_dd_batch_exact(uh, ul, C, N_k64, F, f0, hinv5, 1.0e-12,
+                                                     1.0, 16, n_chunk)
+    S_fn = sharding._sharded_batch_S_fn(
+        uh_s, ul_s, sharding._split_columns(C, mesh, 0)[0], mesh,
+        solvers_large._batch_chunk_width(K, uh_s[0].shape[1]))
+    on_mesh = solvers_large._batch_exact_from_S_fn(S_fn, F, N_k64, f0, hinv5, 1.0e-12, 1.0, 16)
+    one_floor, mesh_floor = one[4].cpu().numpy(), on_mesh[4].cpu().numpy()
+    one_iters, mesh_iters = one[1].cpu().numpy(), on_mesh[1].cpu().numpy()
+    mesh_at_floor = boot["info"]["at_floor"]
+    cross = dict(
+        phase5={"n_at_floor": int(single5["at_floor"].sum()),
+                "exact_iters": np.bincount(single5["exact_iters"]).tolist()},
+        mesh={"n_at_floor": int(mesh_at_floor.sum()),
+              "exact_iters": np.bincount(boot["info"]["exact_iters"]).tolist()},
+        mesh_engine_from_phase5_base={
+            "n_at_floor": bix["n_at_floor"], "n_fail": nfx,
+            "exact_iters": np.bincount(bix["exact_iters"]).tolist(),
+            "stops_unlike_phase5": int((bix["at_floor"] != single5["at_floor"]).sum()),
+            "max_dev_vs_phase5": float(np.abs((fx - fx[:, :1]) - single5["f_boots"]).max())},
+        single_engine_from_mesh_base={
+            "n_at_floor": biy["n_at_floor"], "n_fail": nfy,
+            "exact_iters": np.bincount(biy["exact_iters"]).tolist(),
+            "stops_unlike_mesh": int((biy["at_floor"] != mesh_at_floor).sum()),
+            "max_dev_vs_mesh": float(np.abs((fy - fy[:, :1]) - mbar.f_k_boots).max())},
+        exact_from_one_start={
+            "n_at_floor": [int(one_floor.sum()), int(mesh_floor.sum())],
+            "exact_iters": [np.bincount(one_iters).tolist(), np.bincount(mesh_iters).tolist()],
+            "stops_unlike": int((one_floor != mesh_floor).sum()),
+            "iters_unlike": int((one_iters != mesh_iters).sum()),
+            "max_dev": float((one[0] - on_mesh[0].to(one[0].device)).abs().max())},
+    )
+    emit("9a_stop_rule_across_routes", **cross)
+    if nfx or nfy or cross["exact_from_one_start"]["stops_unlike"] or \
+            cross["exact_from_one_start"]["iters_unlike"]:
+        fail(f"the mesh and the single card stop replicates unlike from one start: {cross}")
+    if (bix["n_at_floor"] != cross["phase5"]["n_at_floor"]
+            or biy["n_at_floor"] != cross["mesh"]["n_at_floor"]):
+        fail(f"from one base solution and factor the routes count other floor stops: {cross}")
+    del uh, ul, uh_s, ul_s, mbar, res, counts, C, F, one, on_mesh
+    torch.cuda.empty_cache()
+
+    batched = []
+    chunks = []
+    prot = MBAR._resolve_protocol(None, BOOTSTRAP_SOLVER_PROTOCOL, 10000)
+
+    def sequential(m, n):
+        """The first n replicates of m, one by one on their gathered columns."""
+        out = np.zeros((n, m.K))
+        for b in range(n):
+            idx = torch.as_tensor(m.bootstrap_rints[b], device=dev)
+            out[b], _ = solve_mbar_for_all_states(m.u_kn.index_select(1, idx), m.N_k, m.f_k,
+                                                  m.states_with_samples, prot)
+        return out
+
+    solve = wrapped(tsolvers, "batched_bootstrap_solve",
+                    lambda wall, out: batched.append(dict(wall=wall, n_fail=out[1])))
+    chunk_fn = tsolvers._boot_chunk
+    tsolvers._boot_chunk = lambda *a: chunks.append(chunk_fn(*a)) or chunks[-1]
+    try:
+        # (b) an alchemical-ladder-sized problem below the dd gate: 16
+        # oscillators x 3,000 samples, B = 100, on the batched route
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        u_b, N_k_b, fa_b, _x = oscillators(torch, SMALL_K, SMALL_NPK, gen, dev)
+        m_b, init_s, _ = run("b_small_batched_mbar",
+                             lambda: MBAR(u_b, N_k_b, n_bootstraps=SMALL_BOOT, rseed=SEED),
+                             u_kn_bytes=u_b.nbytes)
+        f_seq, seq_s, _ = run("b_small_sequential", lambda: sequential(m_b, SMALL_BOOT))
+        seq_dev8 = float(np.abs(f_seq[:8] - m_b.f_k_boots[:8]).max())
+        b_line = dict(
+            K=SMALL_K, N=int(sum(N_k_b)), u_kn_bytes=u_b.nbytes, n_bootstraps=SMALL_BOOT,
+            route=m_b.solver_protocol[0]["method"], batched_calls=len(batched),
+            batched_s=batched[0]["wall"] if batched else None, chunk=chunks[:1],
+            n_fail=batched[0]["n_fail"] if batched else None, mbar_init_s=init_s,
+            sequential_s=seq_s, max_dev_first8=seq_dev8,
+            max_dev_all=float(np.abs(f_seq - m_b.f_k_boots).max()),
+        )
+        emit("9b_small_batched_bootstrap", **b_line)
+        if len(batched) != 1 or b_line["route"] != "adaptive" or u_b.nbytes >= 8 * 2**20:
+            fail(f"the small problem's bootstrap did not take the batched route ({b_line})")
+        if not (seq_dev8 <= 1.0e-9 and b_line["n_fail"] == 0):
+            fail(f"batched replicates differ from the sequential route by {seq_dev8:.3e}")
+
+        # (c) the umbrella configuration of phase 8 plus its unbiased state
+        # (K0/2) x^2 as an unsampled state (N_k = 0), B = 16: the dd base
+        # solve, then the batched replicates (no counts route: a state is empty)
+        K0, Ku = 20.0, 100.0
+        rng = np.random.RandomState(23)
+        centers = np.linspace(-3.0, 3.0, FES_KW) * 0.2
+        sig = 1.0 / (K0 + Ku)
+        x_n = (sig * Ku * centers[:, None]
+               + np.sqrt(sig) * rng.standard_normal((FES_KW, FES_NPW))).reshape(-1)
+        x_dev = torch.as_tensor(x_n, device=dev)
+        u_c = torch.cat([
+            (K0 / 2.0) * x_dev[None, :] ** 2 + (Ku / 2.0) * (
+                x_dev[None, :] - torch.as_tensor(centers, device=dev)[:, None]) ** 2,
+            (K0 / 2.0) * x_dev[None, :] ** 2,
+        ])
+        del x_dev
+        N_k_c = np.append(np.full(FES_KW, FES_NPW), 0)
+        n_before = len(batched)
+        m_c, init_s, _ = run("c_umbrella_unbiased_mbar",
+                             lambda: MBAR(u_c, N_k_c, n_bootstraps=FES_BOOT, rseed=SEED),
+                             u_kn_bytes=u_c.nbytes, shape=list(u_c.shape))
+        f_seq, seq_s, _ = run("c_umbrella_sequential_2", lambda: sequential(m_c, 2))
+        seq_dev = float(np.abs(f_seq - m_c.f_k_boots[:2]).max())
+        c_line = dict(
+            u_kn_bytes=u_c.nbytes, n_bootstraps=FES_BOOT, route=mesh_route(m_c)[0],
+            batched_calls=len(batched) - n_before,
+            batched_s=batched[-1]["wall"] if len(batched) > n_before else None,
+            chunk_from_free_memory=chunks[-1] if chunks else None,
+            n_fail=batched[-1]["n_fail"] if len(batched) > n_before else None,
+            mbar_init_s=init_s, sequential_2_s=seq_s, max_dev_vs_sequential_2=seq_dev,
+            f_unbiased_minus_f0=float(m_c.f_k[-1]),
+        )
+        emit("9c_umbrella_unbiased_bootstrap", **c_line)
+        if c_line["batched_calls"] != 1 or m_c.bootstrap_at_floor is not None:
+            fail(f"the umbrella bootstrap did not take the batched route ({c_line})")
+        if not (seq_dev <= 1.0e-9 and c_line["n_fail"] == 0 and np.isfinite(m_c.f_k_boots).all()):
+            fail(f"umbrella replicates differ from the sequential route by {seq_dev:.3e}")
+        del u_c, m_c
+    finally:
+        tsolvers.batched_bootstrap_solve = solve
+        tsolvers._boot_chunk = chunk_fn
+    torch.cuda.empty_cache()
+
+    # (d) anderson and BFGS on (b)'s problem, against its adaptive solve
+    # anderson's iterations are its core_stats passes, BFGS's its line
+    # searches, each of which evaluates the objective and gradient
+    counted = ("core_stats", "mbar_objective_and_gradient", "_line_search")
+    for method in ("anderson", "BFGS"):
+        calls = dict.fromkeys(counted, 0)
+        originals = {name: getattr(tsolvers, name) for name in counted}
+
+        def counter(name, fn):
+            def counted(*a, **k):
+                calls[name] += 1
+                return fn(*a, **k)
+            return counted
+
+        for name, fn in originals.items():
+            setattr(tsolvers, name, counter(name, fn))
+        try:
+            m_d, wall, _ = run(f"d_{method.lower()}_mbar", lambda: MBAR(
+                u_b, N_k_b, solver_protocol=({"method": method},)))
+        finally:
+            for name, fn in originals.items():
+                setattr(tsolvers, name, fn)
+        dev_d = float(np.abs(m_d.f_k - m_b.f_k).max())
+        emit(f"9d_{method.lower()}", s=wall, success=bool(m_d.solver_results[0]["success"]),
+             anderson_iterations=calls["core_stats"], bfgs_iterations=calls["_line_search"],
+             bfgs_objective_evaluations=calls["mbar_objective_and_gradient"],
+             f_k_max_err_vs_adaptive=dev_d)
+        if not (m_d.solver_results[0]["success"] and dev_d <= 1.0e-8):
+            fail(f"{method}: f_k differs from the adaptive solve by {dev_d:.3e}")
+    return mesh_k1
+
+
 def main():
     import torch
 
@@ -719,7 +1037,7 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from pymbar_tpu_torch import MBAR, bar, checkpoint, exp, testsystems, timeseries
+    from pymbar_tpu_torch import MBAR, bar, checkpoint, config, exp, testsystems, timeseries
     from pymbar_tpu_torch.mbar import bootstrap_counts
     from pymbar_tpu_torch.ops import _build, lognum, roofline, wsum, wsum_split
     from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
@@ -747,7 +1065,7 @@ def main():
         _build.load(name)
     build_s = time.perf_counter() - t0
     ptxas = {
-        name: [line.strip() for line in (_build._BUILD / f"{name}.log").read_text().splitlines()
+        name: [line.strip() for line in (config.build_dir() / f"{name}.log").read_text().splitlines()
                if "Function properties" in line or "Used" in line or "spill" in line]
         for name in SOURCES
     }
@@ -1675,7 +1993,9 @@ def main():
     if serial_launches != int(bis["polish_iterations"].sum()) or serial_launches <= 0:
         fail(f"serial mode launched K1 {serial_launches} times for "
              f"{bis['polish_iterations'].tolist()} polish iterations")
-    boot_mbar = mbar  # phase 7 reuses its replicates
+    boot_mbar = mbar  # phase 7 reuses its replicates, phase 9 compares with them
+    single5 = dict(f_k=mbar.f_k.copy(), hinv=info["hinv"], f_boots=mbar.f_k_boots.copy(),
+                   at_floor=bi12["at_floor"].copy(), exact_iters=bi12["exact_iters"].copy())
     del uh, ul, mbar, res, counts, direct, fb12, fb7, fs
     torch.cuda.empty_cache()
 
@@ -1816,6 +2136,7 @@ def main():
     del boot_mbar
     torch.cuda.empty_cache()
     phase8(torch, np, u_kn, N_k, x_n)
+    mesh_boot_k1 = phase9(torch, np, u_kn, N_k, fa, f_flag, sigma_asym, single5)
     del u_kn, x_n
     torch.cuda.empty_cache()
 
@@ -1824,7 +2145,7 @@ def main():
     KS = SLICE_K
     rows = [
         ("wsum_dd", "pymbar_tpu_torch/csrc/wsum.cu", "pymbar_tpu/ops/pallas_kernels.py:584",
-         flag_launches, bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
+         flag_launches + mesh_boot_k1, bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
         ("column_shift", "pymbar_tpu_torch/csrc/wsum_split.cu",
          "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0],
          bound(4 * KS * Ns + 4 * KS, 4 * Ns, 2 * KS * Ns, F32_OPS_PER_S)),

@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
     python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap] [diagnostics]
-                                       [expectations] [clusters] [fes]
+                                       [expectations] [clusters] [fes] [mesh_bootstrap]
+                                       [batched_bootstrap] [boot_budgets]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -76,6 +77,37 @@ bookkeeping), the analytical ``get_fes`` and its steps (the streamed
 augmented Gram, the rank-nnz Theta), the KDE's generate + get, and one
 profiler trace of FES + histogram; then the histogram on the flagship's
 u_kn (target state K/2, 100 bins): walls and a trace.
+
+``mesh_bootstrap`` runs the flagship with B = 64 replicates on 4 shards of
+cuda:0 (and on every card when there are several): ``MBAR`` init on one
+card and on the mesh in turns (one card, mesh, mesh, one card: walls,
+peak); then ``sharded_bootstrap_polish_dd`` on the mesh's planes with the
+resident fast plane and without it (``_use_resident_th`` patched) in turns,
+and with groups of 16, 32 and 64 replicates (``_batch_group_size``
+patched): walls, reps/s and peak memory, the inputs of the per-card
+budgets ``_TH_RESIDENT_BUDGET_BYTES`` and ``_batch_group_size``.
+
+``batched_bootstrap`` measures ``mbar._BATCHED_BOOT_BYTES`` and the chunk
+width of ``solvers.batched_bootstrap_solve``: at 6.1 MB (16 oscillators x
+3,000 samples, B = 100), 67 MB (64 x 2,048, B = 32), 268 MB (128 x
+2,048, B = 16), 545 MB (the umbrella
+configuration plus its unbiased state, unsampled, B = 16), 2.1 GB (256 x
+4,096, B = 8), 4.3 GB (512 x 2,048, B = 4) and 8.6 GB (1024 x 1,024,
+B = 2), the
+batched solve against the sequential route (one adaptive solve per
+replicate on its gathered columns; both with the bootstrap protocol's
+min_sc_iter = 0, as MBAR runs them) in turns (batched, sequential,
+sequential, batched: walls, peak, the chunk the free memory gave); then at
+545 MB the batched solve with chunks of 1, 2, 4, 8 and 16 replicates,
+and profiler traces of 2 replicates by each route; last, the batched Gram
+W W^T three ways (one bmm, a matmul per replicate, a bmm over
+16,384-column blocks) at the cases' chunk shapes (median of 5).
+
+``boot_budgets`` measures the single-card bootstrap engine's budgets:
+``solvers_large._batch_group_size`` at the flagship with B = 256 (groups
+of 64, 128, 256 in turns) and ``_TH_RESIDENT_BUDGET_BYTES`` at K = 1024 x
+2,500 samples per state (21 GB of u_kn), the resident fast plane against
+the recomputed exp in turns: walls, phase walls, peak memory.
 """
 
 import json
@@ -648,6 +680,234 @@ def profile_clusters(torch, card):
             pinned_ms_for_these_elements=K * N / ceiling * 1e3)), flush=True)
 
 
+def profile_mesh_bootstrap(torch, card):
+    """The flagship's B = 64 bootstrap on the mesh (see the module doc)."""
+    import numpy as np
+
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.mbar import bootstrap_counts
+    from pymbar_tpu_torch.parallel import sharding
+    from pymbar_tpu_torch.solvers_large import dev_split_planes
+
+    dev = torch.device("cuda", 0)
+    B = 64
+    u, N_k = oscillators(torch, *CONFIGS["flagship"][:2], dev)
+    meshes = {"4 shards of cuda:0": sharding.default_mesh(4, device="cuda:0")}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = sharding.default_mesh()
+    for label, mesh in meshes.items():
+        MBAR(u, N_k, n_bootstraps=B, rseed=1, mesh=mesh)  # warm-up
+        turns = {"one card": [], "mesh": []}
+        for which in ("one card", "mesh", "mesh", "one card"):
+            kw = dict(mesh=mesh) if which == "mesh" else {}
+            torch.cuda.reset_peak_memory_stats()
+            t, m = timed(torch, lambda: MBAR(u, N_k, n_bootstraps=B, rseed=1, **kw))
+            turns[which].append(dict(init_s=t, max_memory_allocated=torch.cuda.max_memory_allocated()))
+        print(json.dumps(dict(config="mesh_bootstrap", card=card, mesh=label, B=B,
+                              mbar_init_by_route=turns)), flush=True)
+
+        f_k = m.f_k
+        hinv = m.solver_results[0]["info"]["hinv"]
+        counts = bootstrap_counts(m.bootstrap_rints, m.N)
+        uh, ul = dev_split_planes(u)
+        uh_s, ul_s, _ = sharding.shard_dd_planes(uh, ul, mesh)
+        del uh, ul, m
+        torch.cuda.empty_cache()
+
+        def polish():
+            torch.cuda.reset_peak_memory_stats()
+            t, (fb, nf, info) = timed(torch, lambda: sharding.sharded_bootstrap_polish_dd(
+                uh_s, ul_s, N_k, f_k, hinv, counts, mesh))
+            return dict(wall_s=t, reps_per_s=B / t, n_fail=nf, n_at_floor=info["n_at_floor"],
+                        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+        resident = sharding._use_resident_th
+        runs = {"resident th": [], "th recomputed": []}
+        for which in ("resident th", "th recomputed", "th recomputed", "resident th"):
+            if which == "th recomputed":
+                sharding._use_resident_th = lambda K, N: False
+            try:
+                runs[which].append(polish())
+            finally:
+                sharding._use_resident_th = resident
+        group_size = sharding._batch_group_size
+        by_group = {}
+        for g in (16, 32, 64, 64, 32, 16):
+            sharding._batch_group_size = lambda n_boot, N, g=g: g
+            try:
+                by_group.setdefault(str(g), []).append(polish())
+            finally:
+                sharding._batch_group_size = group_size
+        print(json.dumps(dict(config="mesh_bootstrap", card=card, mesh=label,
+                              default_resident_th=resident(u.shape[0], u.shape[1]),
+                              default_group=group_size(B, u.shape[1]), polish_by_th=runs,
+                              polish_by_group=by_group)), flush=True)
+        del uh_s, ul_s
+        torch.cuda.empty_cache()
+    del u
+    torch.cuda.empty_cache()
+
+
+def profile_batched_bootstrap(torch, card):
+    """The batched small-problem bootstrap against the sequential route by
+    size, and its chunk width (see the module doc)."""
+    import numpy as np
+
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch import solvers as tsolvers
+    from pymbar_tpu_torch.solvers import BOOTSTRAP_SOLVER_PROTOCOL, solve_mbar_for_all_states
+
+    dev = torch.device("cuda", 0)
+    prot = MBAR._resolve_protocol(None, BOOTSTRAP_SOLVER_PROTOCOL, 10000)
+    chunks = []
+    chunk_fn = tsolvers._boot_chunk
+
+    def recorded_chunk(*a):
+        chunks.append(chunk_fn(*a))
+        return chunks[-1]
+
+    def umbrella_unbiased():
+        u, u_n, _x, N_k, _edges = umbrella(torch, dev)
+        u = torch.cat([u, torch.as_tensor(u_n, device=u.device)[None, :]])
+        return u, np.append(N_k, 0)
+
+    cases = [
+        ("16 x 3000", lambda: oscillators(torch, 16, 3000, dev), 100),
+        ("64 x 2048", lambda: oscillators(torch, 64, 2048, dev), 32),
+        ("128 x 2048", lambda: oscillators(torch, 128, 2048, dev), 16),
+        ("umbrella 64 x 16384 + unbiased", umbrella_unbiased, 16),
+        ("256 x 4096", lambda: oscillators(torch, 256, 4096, dev), 8),
+        ("512 x 2048", lambda: oscillators(torch, 512, 2048, dev), 4),
+        ("1024 x 1024", lambda: oscillators(torch, 1024, 1024, dev), 2),
+    ]
+    tsolvers._boot_chunk = recorded_chunk
+    try:
+        for label, make, B in cases:
+            u, N_k = make()
+            m = MBAR(u, N_k)
+            rints = MBAR.from_solution(u, N_k, m.f_k, rseed=1)._draw_bootstrap_rints(B)
+            sws = np.where(np.asarray(N_k) > 0)[0]
+
+            def batched():
+                return tsolvers.batched_bootstrap_solve(u, N_k, m.f_k, rints, min_sc_iter=0)[0]
+
+            def sequential():
+                out = np.zeros((B, len(N_k)))
+                for b in range(B):
+                    idx = torch.as_tensor(rints[b], device=u.device)
+                    out[b], _ = solve_mbar_for_all_states(u.index_select(1, idx), N_k, m.f_k,
+                                                          sws, prot)
+                return out
+
+            batched()  # warm-up
+            turns = {"batched": [], "sequential": []}
+            outs = {}
+            for which in ("batched", "sequential", "sequential", "batched"):
+                torch.cuda.reset_peak_memory_stats()
+                t, outs[which] = timed(torch, batched if which == "batched" else sequential)
+                turns[which].append(dict(wall_s=t, reps_per_s=B / t,
+                                         max_memory_allocated=torch.cuda.max_memory_allocated()))
+            print(json.dumps(dict(
+                config="batched_bootstrap", card=card, case=label, u_kn_bytes=u.nbytes, B=B,
+                chunk_from_free_memory=chunks[-1], walls=turns,
+                max_dev_batched_vs_sequential=float(np.abs(outs["batched"] - outs["sequential"]).max()),
+            )), flush=True)
+            if label.startswith("umbrella"):
+                one = rints[:2]
+                traces = dict(
+                    batched_chunk1=trace_kernels(torch, lambda: tsolvers.batched_bootstrap_solve(
+                        u, N_k, m.f_k, one, min_sc_iter=0, chunk_bytes=1), float("nan")),
+                    sequential=trace_kernels(torch, lambda: [solve_mbar_for_all_states(
+                        u.index_select(1, torch.as_tensor(r, device=u.device)), N_k, m.f_k, sws,
+                        prot) for r in one], float("nan")),
+                )
+                print(json.dumps(dict(config="batched_bootstrap", card=card, case=label,
+                                      two_replicates_traces=traces)), flush=True)
+                by_chunk = {}
+                for c in (1, 2, 4, 8, 16):
+                    per = tsolvers._BOOT_BYTES_PER_MATRIX * 8 * u.numel()
+                    torch.cuda.reset_peak_memory_stats()
+                    t, _fb = timed(torch, lambda: tsolvers.batched_bootstrap_solve(
+                        u, N_k, m.f_k, rints, min_sc_iter=0, chunk_bytes=c * per))
+                    by_chunk[str(c)] = dict(wall_s=t, reps_per_s=B / t,
+                                            max_memory_allocated=torch.cuda.max_memory_allocated())
+                print(json.dumps(dict(config="batched_bootstrap", card=card, case=label,
+                                      by_chunk=by_chunk)), flush=True)
+            del u, m
+            torch.cuda.empty_cache()
+    finally:
+        tsolvers._boot_chunk = chunk_fn
+
+    # the batched Gram W W^T of every replicate: one bmm, a matmul per
+    # replicate, or a bmm over 16,384-column blocks summed
+    grams = {}
+    for B, K, N in ((100, 16, 48000), (10, 65, 2**20), (2, 256, 2**20), (1, 512, 2**20)):
+        W = torch.rand((B, K, N), dtype=torch.float64, device=dev)
+        w_blk = 16384
+
+        def blocked():
+            nb = N // w_blk
+            Wb = W[:, :, : nb * w_blk].reshape(B, K, nb, w_blk).transpose(1, 2)
+            g = (Wb @ Wb.mT).sum(dim=1)
+            if nb * w_blk < N:
+                g += W[:, :, nb * w_blk:] @ W[:, :, nb * w_blk:].mT
+            return g
+
+        forms = dict(bmm=lambda: W @ W.mT,
+                     per_replicate=lambda: torch.stack([w @ w.T for w in W]),
+                     blocked=blocked)
+        grams[f"{B}x{K}x{N}"] = {name: median_ms(torch, fn) for name, fn in forms.items()}
+        del W
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(config="batched_bootstrap", card=card, gram_ms=grams)), flush=True)
+
+
+def profile_boot_budgets(torch, card):
+    """The bootstrap engine's per-card budgets on one card: the counts
+    group at the flagship with B = 256 (groups of 64, 128 and 256), and the
+    resident fast plane at K = 1024 x 2,500 samples per state (N =
+    2,560,000; 21 GB of u_kn, planes + th 30.7 GB), resident against
+    recomputed, B = 64."""
+    import numpy as np
+
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch import solvers_large as sl
+    from pymbar_tpu_torch.mbar import bootstrap_counts
+
+    dev = torch.device("cuda", 0)
+    for K, npk, B, knob, values in ((1024, 976, 256, "group", (64, 128, 256, 256, 128, 64)),
+                                    (1024, 2500, 64, "th", (True, False, False, True))):
+        u, N_k = oscillators(torch, K, npk, dev)
+        m = MBAR(u, N_k)
+        rints = MBAR.from_solution(u, N_k, m.f_k, rseed=1)._draw_bootstrap_rints(B)
+        counts = bootstrap_counts(rints, m.N)
+        uh, ul = sl.dev_split_planes(u)
+        hinv = m.solver_results[0]["info"]["hinv"]
+        del u
+        torch.cuda.empty_cache()
+        runs = {}
+        group_size, resident = sl._batch_group_size, sl._use_resident_th
+        for v in values:
+            if knob == "group":
+                sl._batch_group_size = lambda n_boot, N, v=v: v
+            else:
+                sl._use_resident_th = lambda K_, N_, v=v: v
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                t, (fb, nf, info) = timed(torch, lambda: sl.bootstrap_polish_dd(
+                    uh, ul, N_k, m.f_k, hinv, counts))
+            finally:
+                sl._batch_group_size, sl._use_resident_th = group_size, resident
+            runs.setdefault(str(v), []).append(dict(
+                wall_s=t, reps_per_s=B / t, n_fail=nf, phase_walls=info["phase_walls"],
+                max_memory_allocated=torch.cuda.max_memory_allocated()))
+        print(json.dumps(dict(config="boot_budgets", card=card, K=K, N=m.N, B=B, knob=knob,
+                              default_group=group_size(B, m.N),
+                              default_resident_th=resident(K, m.N), runs=runs)), flush=True)
+        del uh, ul, m
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -655,7 +915,8 @@ def main():
         raise RuntimeError("needs a CUDA card")
     extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics,
              "expectations": profile_expectations, "clusters": profile_clusters,
-             "fes": profile_fes}
+             "fes": profile_fes, "mesh_bootstrap": profile_mesh_bootstrap,
+             "batched_bootstrap": profile_batched_bootstrap, "boot_budgets": profile_boot_budgets}
     names = sys.argv[1:] or [*CONFIGS, *extra]
     unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:

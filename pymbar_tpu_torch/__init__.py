@@ -4,8 +4,10 @@ The MBAR solve and the free-energy differences, in PyTorch, with the
 double-word polish's weight-sum pass (``wsum_dd``, and above 4096 states
 its split pair ``denom_sums_dd`` + ``wsum_denom_dd``) and the lognum family
 (``logden_dd``, ``lognum_dd``, ``lognum_fused_dd``) as hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a), and the 1-D sample-sharded solve in
-:mod:`pymbar_tpu_torch.parallel` (``MBAR(mesh=)``).  Entry points place
+kernels for NVIDIA Hopper (sm_90a), and the 1-D sample-sharded solve and
+bootstrap in :mod:`pymbar_tpu_torch.parallel` (``MBAR(mesh=)``).  The
+reference's solver surface is :mod:`pymbar_tpu_torch.mbar_solvers`, the
+environment toggles :mod:`pymbar_tpu_torch.config`.  Entry points place
 numpy input on the CUDA card unless ``device="cpu"`` is asked for.
 :mod:`pymbar_tpu` (JAX) stays the reference; this package imports neither
 it nor JAX.

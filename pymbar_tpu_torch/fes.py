@@ -52,7 +52,11 @@ from pymbar_tpu_torch.mbar import (
     bootstrap_counts,
 )
 from pymbar_tpu_torch.ops.mbar_core import _col_chunks, _logden_direct
-from pymbar_tpu_torch.solvers import DEFAULT_SOLVER_PROTOCOL, solve_mbar_for_all_states
+from pymbar_tpu_torch.solvers import (
+    DEFAULT_SOLVER_PROTOCOL,
+    batched_bootstrap_solve,
+    solve_mbar_for_all_states,
+)
 from pymbar_tpu_torch.solvers_large import bootstrap_polish_dd, dev_split_planes
 from pymbar_tpu_torch.utils import DataError, ParameterError, kn_to_n, logsumexp
 
@@ -444,10 +448,13 @@ class FES:
         its per-sample multiplicities, solved by the batched counts-weighted
         dd polish on the internal MBAR's planes from its f_k and chord
         factor (the counterpart of the JAX package's batched TPU branch).
-        ``route="replicate"``: each solves in turn on its gathered columns
-        ``u_kn[:, indices]`` by ``solve_mbar_for_all_states`` under the
-        default protocol, warm from the base f_k (the JAX package's off-TPU
-        branch); ``n_fail`` is then 0, as there."""
+        ``route="replicate"``: each solves on its gathered columns
+        ``u_kn[:, indices]`` warm from the base f_k: on a CUDA u_kn within
+        the internal MBAR's batched gate all at once by
+        :func:`pymbar_tpu_torch.solvers.batched_bootstrap_solve` (the JAX
+        package's TPU branch), else in turn by ``solve_mbar_for_all_states``
+        under the default protocol (its off-TPU branch; ``n_fail`` is then
+        0, as there)."""
         m = self.mbar
         if route == "counts":
             uh, ul = dev_split_planes(m.u_kn)
@@ -458,6 +465,8 @@ class FES:
             return f_boots - f_boots[:, :1], n_fail
         if route != "replicate":
             raise ParameterError(f"unknown bootstrap route {route!r}")
+        if m._batched_boot_sized():
+            return batched_bootstrap_solve(m.u_kn, m.N_k, m.f_k, all_indices)
         protocol = MBAR._resolve_protocol(None, DEFAULT_SOLVER_PROTOCOL, 10000)
         f_boots = np.zeros((len(all_indices), m.K))
         for b, indices in enumerate(all_indices):

@@ -69,6 +69,19 @@ __all__ = ["MBAR"]
 # protocol and its hybr fallback.  Module constant so tests can move it.
 _DD_ROUTE_BYTES = 8 * 2**20
 
+# Up to this many bytes of a CUDA u_kn, bootstrap replicates that do not
+# ride the dd counts route (a small problem below _DD_ROUTE_BYTES, or an
+# empty state) are solved batched (solvers.batched_bootstrap_solve), each
+# chunk of replicates gathered at once; above it, one by one.  It is the
+# largest size read, not a speed crossover.  On an 80 GB H100 (PERF.md)
+# the batched route took 0.05-0.07 of the sequential route's time at 6.1
+# MB, 0.47-0.62 at 67 MB, 0.83-0.93 at 268-545 MB and 0.98-1.02 at 2.1 GB;
+# from 4.3 GB up a chunk holds one replicate, and the route runs the
+# sequential route's passes at its peak (14.0 GB at 4.3 GB, 27.6 GB at
+# 8.6 GB) in 0.95-0.99 of its time.  Larger problems were not read.
+# Module constant so tests can move it.
+_BATCHED_BOOT_BYTES = 8 * 2**30
+
 # From this many bytes of u_kn up, compute_expectations_inner streams u_kn's
 # column chunks through the augmented passes instead of building the
 # N x (K + NL + S) log-weights.  Measured on an H100 (PERF.md §5,
@@ -280,8 +293,7 @@ class MBAR:
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
     a numpy ``u_kn`` is placed (default "cuda", and without a card a
     :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
-    device is used as it is).  ``n_bootstraps > 0`` with a mesh is not yet
-    ported and raises :class:`ParameterError`.
+    device is used as it is).
 
     ``initialize="BAR"`` chains pairwise BAR along adjacent sampled states:
     each pair's work values are gathered from ``u_kn`` on its device in one
@@ -290,14 +302,18 @@ class MBAR:
     ``n_bootstraps``: replicates drawn with the object's numpy
     ``default_rng(rseed)`` in the JAX package's order (replicate, then
     state), so a seed gives ``pymbar_tpu.MBAR``'s ``bootstrap_rints``.  On
-    a dd solve with every state sampled, no BAR start and the default
-    bootstrap protocol they ride the base solve's planes as counts-weighted
-    polishes (:func:`pymbar_tpu_torch.solvers_large.solve_mbar_dd_bootstrap`,
-    which sets ``bootstrap_at_floor``); otherwise each replicate is solved
-    in turn on ``u_kn[:, rints]`` under ``bootstrap_solver_protocol``.  Where
-    the automatic choice would take the mesh of several cards, a bootstrap
-    takes the single-card dd route instead (the mesh bootstrap is not yet
-    ported).
+    a dd or mesh solve with every state sampled, no BAR start and the
+    default bootstrap protocol they ride the base solve's planes as
+    counts-weighted polishes
+    (:func:`pymbar_tpu_torch.solvers_large.solve_mbar_dd_bootstrap`, or on
+    the mesh
+    :func:`pymbar_tpu_torch.parallel.sharding.sharded_bootstrap_polish_dd`;
+    both set ``bootstrap_at_floor``).  Otherwise, on a CUDA ``u_kn`` of at
+    most ``_BATCHED_BOOT_BYTES`` with no BAR start and the default
+    bootstrap protocol, every replicate is solved batched
+    (:func:`pymbar_tpu_torch.solvers.batched_bootstrap_solve`); else each
+    is solved in turn on ``u_kn[:, rints]`` under
+    ``bootstrap_solver_protocol``, as on the CPU.
 
     ``mesh``: a :class:`pymbar_tpu_torch.parallel.Mesh` solves the sampled
     states by the sample-sharded double-word solver
@@ -382,19 +398,9 @@ class MBAR:
 
         # The mesh front door: mesh="auto" takes every visible card when
         # there are several; a Mesh is honored as it is.  An explicit
-        # solver_protocol wins over the mesh, with a warning.  A bootstrap
-        # keeps to one card: the mesh bootstrap is not yet ported.
+        # solver_protocol wins over the mesh, with a warning.
         several = torch.cuda.device_count() > 1
-        if several and n_bootstraps > 0 and (
-            mesh == "auto"
-            or (solver_protocol is None and mesh is None and self._dd_sized())
-        ):
-            logger.info(
-                "n_bootstraps > 0: the mesh bootstrap is not yet ported, so "
-                "the solve and its replicates run on one card"
-            )
-            mesh = None
-        elif mesh == "auto":
+        if mesh == "auto":
             mesh = default_mesh() if several else None
         self.mesh = mesh
         if mesh is not None and solver_protocol is not None:
@@ -404,16 +410,11 @@ class MBAR:
                 "is ignored for the solve."
             )
             self.mesh = mesh = None
-        if mesh is not None and n_bootstraps > 0:
-            raise ParameterError(
-                "n_bootstraps > 0 with a mesh (the mesh bootstrap) is not yet "
-                "ported to pymbar_tpu_torch"
-            )
 
         # The route gate: large CUDA problems with no protocol take the
         # double-word solver, sharded over every card when there are several.
         if solver_protocol is None and mesh is None and self._dd_sized():
-            if several and n_bootstraps <= 0:
+            if several:
                 self.mesh = mesh = default_mesh()
             else:
                 solver_protocol = (dict(method="dd", options=dict()),)
@@ -430,21 +431,35 @@ class MBAR:
         self.n_bootstraps = max(int(n_bootstraps), 0)
         self.bootstrap_at_floor = None
         counts = None
+        default_boot = (
+            initialize != "BAR"
+            and len(bootstrap_solver_protocol) == 1
+            and bootstrap_solver_protocol[0]["method"] == "adaptive"
+        )
         if self.n_bootstraps > 0:
             self.bootstrap_rints = self._draw_bootstrap_rints(self.n_bootstraps)
-            counts_route = (
-                len(bootstrap_solver_protocol) == 1
-                and bootstrap_solver_protocol[0]["method"] == "adaptive"
+            dd_stage = (
+                mesh is None
                 and len(self.solver_protocol) == 1
                 and self.solver_protocol[0]["method"] == "dd"
-                and self.K_nonzero == self.K
-                and initialize != "BAR"
             )
-            if counts_route:
+            if default_boot and self.K_nonzero == self.K and (mesh is not None or dd_stage):
                 counts = bootstrap_counts(self.bootstrap_rints, self.N)
 
         f_boots = None
-        if counts is not None:
+        if mesh is not None:
+            if counts is not None:
+                (self.f_k, self.solver_results, f_boots, n_fail,
+                 boot_info) = sharded_solve_mbar_for_all_states(
+                    self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh,
+                    bootstrap_counts=counts, verbose=verbose,
+                )
+                self.bootstrap_at_floor = boot_info["at_floor"]
+            else:
+                self.f_k, self.solver_results = sharded_solve_mbar_for_all_states(
+                    self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh
+                )
+        elif counts is not None:
             stage = self.solver_protocol[0]
             self.f_k, f_boots, n_fail, info = solve_mbar_dd_bootstrap(
                 self.u_kn, self.N_k, self.f_k, counts,
@@ -457,27 +472,26 @@ class MBAR:
                     "dd MBAR solve did not converge to within tolerance "
                     f"(gnorm={info['gnorm']:.3e})"
                 )
-            if n_fail:
-                logger.warning(
-                    f"{n_fail:d}/{self.n_bootstraps:d} bootstrap replicates did not "
-                    "converge to within tolerance."
-                )
-        elif mesh is not None:
-            self.f_k, self.solver_results = sharded_solve_mbar_for_all_states(
-                self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh
-            )
         else:
             self.f_k, self.solver_results = mbar_solvers.solve_mbar_for_all_states(
                 self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol
             )
 
         if self.n_bootstraps > 0:
-            self.f_k_boots = (
-                f_boots if f_boots is not None
-                else self._bootstrap_sequential(
+            if f_boots is None and default_boot and self._batched_boot_sized():
+                f_boots, n_fail = self._bootstrap_solve_batched(
+                    bootstrap_solver_protocol[0], verbose
+                )
+            if f_boots is None:
+                f_boots = self._bootstrap_sequential(
                     bootstrap_solver_protocol, verbose, bar_start=initialize == "BAR"
                 )
-            )
+            elif n_fail:
+                logger.warning(
+                    f"{n_fail:d}/{self.n_bootstraps:d} bootstrap replicates did not "
+                    "converge to within tolerance."
+                )
+            self.f_k_boots = f_boots
 
         # Log_W_nk materializes on first access: an N x K array that
         # solve-only users never need.
@@ -490,6 +504,31 @@ class MBAR:
     def _dd_sized(self):
         """The route gate's size test: a CUDA u_kn of at least _DD_ROUTE_BYTES."""
         return self.u_kn.is_cuda and self.u_kn.nbytes >= _DD_ROUTE_BYTES
+
+    def _batched_boot_sized(self):
+        """The batched bootstrap's gate: a CUDA u_kn of at most
+        _BATCHED_BOOT_BYTES (the CPU keeps the sequential route, as the JAX
+        package does off a TPU)."""
+        return self.u_kn.is_cuda and self.u_kn.nbytes <= _BATCHED_BOOT_BYTES
+
+    def _bootstrap_solve_batched(self, stage, verbose):
+        """Every replicate solved batched on its resampled columns from the
+        base f_k (:func:`pymbar_tpu_torch.solvers.batched_bootstrap_solve`),
+        with the bootstrap stage's adaptive options and the tol of
+        ``solve_mbar_once`` (the JAX package's mbar.py:1167-1188).
+        Returns (f_k_boots (B, K), n_fail)."""
+        options = stage.get("options") or {}
+        return mbar_solvers.batched_bootstrap_solve(
+            self.u_kn,
+            self.N_k,
+            self.f_k,
+            self.bootstrap_rints,
+            maxiter=int(options.get("maxiter", 10000)),
+            min_sc_iter=int(options.get("min_sc_iter", 2)),
+            gamma=float(options.get("gamma", 1.0)),
+            tol=1.0e-12,
+            verbose=verbose,
+        )
 
     def _state_indices(self):
         """Each state's sample indices, ascending: ``np.where(x_kindices ==

@@ -1,9 +1,11 @@
 """Build the package's CUDA sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` on first use (never at import) into ``pymbar_tpu_torch/_build/``,
-named by a hash of the source, the shared headers ``csrc/*.cuh`` and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+``nvcc`` on first use (never at import) into the build directory
+(:func:`pymbar_tpu_torch.config.build_dir`: ``pymbar_tpu_torch/_build/``
+unless ``PYMBAR_TPU_TORCH_CACHE_DIR`` names another), named by a hash of
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source rebuilds and an unchanged one loads at once.
 The library is loaded with ``ctypes``.
 """
 
@@ -14,11 +16,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from pymbar_tpu_torch import config
+
 __all__ = ["NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_BUILD = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,24 +51,25 @@ def build(name):
 
     Returns the path of the shared library.  The compiler's output (with
     ``-Xptxas -v``: registers, shared memory and spills per kernel) goes to
-    ``_build/<name>.log``.
+    ``<name>.log`` in the build directory.
     """
     src = _CSRC / f"{name}.cu"
     headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = _BUILD / f"lib{name}-{digest}.so"
+    build_dir = config.build_dir()
+    out = build_dir / f"lib{name}-{digest}.so"
     if out.exists():
         return out
-    _BUILD.mkdir(exist_ok=True)
-    tmp = _BUILD / f"lib{name}-{digest}.{os.getpid()}.tmp"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = build_dir / f"lib{name}-{digest}.{os.getpid()}.tmp"
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True,
         text=True,
     )
-    (_BUILD / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    (build_dir / f"{name}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")

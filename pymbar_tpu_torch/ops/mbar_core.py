@@ -19,6 +19,8 @@ column chunks of at most ``_CHUNK_BYTES`` and updates its chunk
 temporaries in place.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -54,9 +56,11 @@ _PAD_THRESHOLD = 5.0e9
 
 def _col_chunks(u, extra_rows=0):
     """(start, stop) column ranges of at most ``_CHUNK_BYTES`` each, counting
-    ``extra_rows`` more rows of u's width that the caller builds per chunk."""
-    K, N = u.shape
-    width = max(1, _CHUNK_BYTES // max(1, (K + extra_rows) * u.element_size()))
+    ``extra_rows`` more rows of u's width that the caller builds per chunk.
+    The rows of every leading batch matrix of u count."""
+    N = u.shape[-1]
+    rows = math.prod(u.shape[:-1])
+    width = max(1, _CHUNK_BYTES // max(1, (rows + extra_rows) * u.element_size()))
     return [(s, min(N, s + width)) for s in range(0, N, width)]
 
 
@@ -105,37 +109,40 @@ def validate_inputs(u_kn, N_k, f_k):
 
 
 def _logden_direct(u, N_k, f_k):
-    a = f_k[:, None] - u  # the chunk's one temporary; updated in place below
-    a_max = a.max(dim=0).values
+    a = f_k[..., :, None] - u  # the chunk's one temporary; updated in place below
+    a_max = a.max(dim=-2).values
     a_max = torch.where(torch.isfinite(a_max), a_max, 0.0)
-    a.sub_(a_max[None, :]).exp_().mul_(N_k[:, None])
-    return torch.log(a.sum(dim=0)) + a_max
+    a.sub_(a_max[..., None, :]).exp_().mul_(N_k[:, None])
+    return torch.log(a.sum(dim=-2)) + a_max
 
 
 def log_denominator_n(u_kn, N_k, f_k):
     """Per-sample mixture log-normalizer: logsumexp_k[f_k - u_kn] weighted by N_k.
 
     Shapes: u_kn (K, N); N_k, f_k (K,).  Returns (N,).  Empty states
-    (N_k == 0) drop out exactly.
+    (N_k == 0) drop out exactly.  Batched: u_kn (B, K, N) and f_k (B, K)
+    give (B, N); :func:`_log_numerator_k`, :func:`core_stats`,
+    :func:`self_consistent_update` (all states), :func:`mbar_gradient`,
+    :func:`mbar_objective`, :func:`mbar_w_nk_gram` and :func:`mbar_hessian`
+    take the same leading batch dimension.
     """
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
-    out = torch.empty(u_kn.shape[1], dtype=u_kn.dtype, device=u_kn.device)
+    out = torch.empty(u_kn.shape[:-2] + u_kn.shape[-1:], dtype=u_kn.dtype, device=u_kn.device)
     for s, e in _col_chunks(u_kn):
-        out[s:e] = _logden_direct(u_kn[:, s:e], N_k, f_k)
+        out[..., s:e] = _logden_direct(u_kn[..., s:e], N_k, f_k)
     return out
 
 
 def _log_numerator_k(u_kn, logden_n):
     """Per-state reweighted log-sum logsumexp_n[-logden_n - u_kn], streamed
     over column chunks with a running max (flash-style rescaling)."""
-    K = u_kn.shape[0]
-    m = torch.full((K,), -torch.inf, dtype=u_kn.dtype, device=u_kn.device)
-    s = torch.zeros(K, dtype=u_kn.dtype, device=u_kn.device)
+    m = torch.full(u_kn.shape[:-1], -torch.inf, dtype=u_kn.dtype, device=u_kn.device)
+    s = torch.zeros(u_kn.shape[:-1], dtype=u_kn.dtype, device=u_kn.device)
     for c0, c1 in _col_chunks(u_kn):
-        a = -logden_n[None, c0:c1] - u_kn[:, c0:c1]
-        m_new = torch.maximum(m, a.max(dim=1).values)
+        a = -logden_n[..., None, c0:c1] - u_kn[..., c0:c1]
+        m_new = torch.maximum(m, a.max(dim=-1).values)
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        s = s * torch.exp(m - m_safe) + a.sub_(m_safe[:, None]).exp_().sum(dim=1)
+        s = s * torch.exp(m - m_safe) + a.sub_(m_safe[..., None]).exp_().sum(dim=-1)
         m = m_new
     m = torch.where(torch.isfinite(m), m, 0.0)
     return torch.log(s) + m
@@ -151,7 +158,7 @@ def core_stats(u_kn, N_k, f_k):
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     logden = log_denominator_n(u_kn, N_k, f_k)
     lognum = _log_numerator_k(u_kn, logden)
-    obj = logden.sum() - torch.dot(N_k, f_k)
+    obj = logden.sum(dim=-1) - f_k @ N_k
     grad = -N_k * (1.0 - torch.exp(f_k + lognum))
     return obj, grad, -lognum
 
@@ -178,7 +185,7 @@ def mbar_gradient(u_kn, N_k, f_k):
 def mbar_objective(u_kn, N_k, f_k):
     """MBAR objective (reference mbar_solvers.py:295-339)."""
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
-    return log_denominator_n(u_kn, N_k, f_k).sum() - torch.dot(N_k, f_k)
+    return log_denominator_n(u_kn, N_k, f_k).sum(dim=-1) - f_k @ N_k
 
 
 def mbar_objective_and_gradient(u_kn, N_k, f_k):
@@ -194,7 +201,7 @@ def mbar_objective_and_gradient(u_kn, N_k, f_k):
 
 def _weights(u_c, f_k, logden_c):
     """The chunk's weights W^T = exp(f_k - u_kn - logden_n), (K, nc)."""
-    return (f_k[:, None] - u_c).sub_(logden_c[None, :]).exp_()
+    return (f_k[..., :, None] - u_c).sub_(logden_c[..., None, :]).exp_()
 
 
 def mbar_w_nk_gram(u_kn, N_k, f_k):
@@ -203,15 +210,15 @@ def mbar_w_nk_gram(u_kn, N_k, f_k):
     W[n, k] = exp(f_k - u_kn[k, n] - logden_n).  These are the only
     aggregates the Hessian (Eq. C9) needs.
     """
-    K = u_kn.shape[0]
+    K = u_kn.shape[-2]
     f_k = _like(f_k, u_kn)
     logden = log_denominator_n(u_kn, N_k, f_k)
-    gram = torch.zeros((K, K), dtype=u_kn.dtype, device=u_kn.device)
-    colsum = torch.zeros(K, dtype=u_kn.dtype, device=u_kn.device)
+    gram = torch.zeros(u_kn.shape[:-1] + (K,), dtype=u_kn.dtype, device=u_kn.device)
+    colsum = torch.zeros(u_kn.shape[:-1], dtype=u_kn.dtype, device=u_kn.device)
     for s, e in _col_chunks(u_kn):
-        w = _weights(u_kn[:, s:e], f_k, logden[s:e])
-        gram += _matmul(w, w.T)
-        colsum += w.sum(dim=1)
+        w = _weights(u_kn[..., s:e], f_k, logden[..., s:e])
+        gram += _matmul(w, w.mT)
+        colsum += w.sum(dim=-1)
     return gram, colsum
 
 
@@ -220,7 +227,7 @@ def mbar_hessian(u_kn, N_k, f_k):
     N_k = _like(N_k, u_kn)
     gram, colsum = mbar_w_nk_gram(u_kn, N_k, f_k)
     H = gram * N_k[None, :] * N_k[:, None]
-    H -= torch.diag(colsum * N_k)
+    H -= torch.diag_embed(colsum * N_k)
     return -H
 
 
@@ -348,11 +355,13 @@ def precondition_u_kn(u_kn, N_k, f_k):
     u_kn <- u_kn - min_k u_kn, then add logden_n - (N_k.f_k)/N so the current
     objective value is exactly zero; derivatives are invariant.  Returns a
     new tensor (the caller's matrix is left as it is), built chunk by chunk.
+    u_kn (B, K, N) preconditions every replicate of a batch around the same
+    (K,) f_k.
     """
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     c_shift = torch.dot(N_k, f_k) / N_k.sum()
     out = torch.empty_like(u_kn)
     for s, e in _col_chunks(u_kn):
-        sl = u_kn[:, s:e] - u_kn[:, s:e].min(dim=0).values[None, :]
-        out[:, s:e] = sl.add_((_logden_direct(sl, N_k, f_k) - c_shift)[None, :])
+        sl = u_kn[..., s:e] - u_kn[..., s:e].min(dim=-2).values[..., None, :]
+        out[..., s:e] = sl.add_((_logden_direct(sl, N_k, f_k) - c_shift)[..., None, :])
     return out

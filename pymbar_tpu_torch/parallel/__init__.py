@@ -2,14 +2,15 @@
 
 The counterpart of :mod:`pymbar_tpu.parallel` for the 1-D mesh: u_kn split
 along n across the mesh's devices, the per-state reductions and the dd
-polish's weight sums combined over it.  The 2-D k x n mesh is still to be
-ported.
+polish's weight sums combined over it, and bootstrap replicates solved on
+the sharded planes.  The 2-D k x n mesh is still to be ported.
 """
 
 from pymbar_tpu_torch.parallel.sharding import (
     Mesh,
     default_mesh,
     shard_dd_planes,
+    sharded_bootstrap_polish_dd,
     shard_u_kn,
     sharded_core_stats,
     sharded_fused_lognum_dd,
@@ -29,5 +30,6 @@ __all__ = [
     "sharded_solve_mbar",
     "shard_dd_planes",
     "sharded_fused_lognum_dd",
+    "sharded_bootstrap_polish_dd",
     "sharded_solve_mbar_dd",
 ]

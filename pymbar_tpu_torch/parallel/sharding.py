@@ -18,8 +18,10 @@ there in mesh order, so the result is the same bits on every run.  K-sized
 results live on that first device.  The functions take no ``axis_name``:
 the JAX package's shard_map needs one, a 1-D :class:`Mesh` carries its own.
 
-Not ported here: the 2-D k x n mesh (``mesh_2d``, ``sharded2d_*``) and the
-mesh bootstrap (``sharded_bootstrap_polish_dd``).
+Bootstrap replicates ride the sharded planes as counts-weighted polishes
+(:func:`sharded_bootstrap_polish_dd`): each shard holds its columns' counts
+(0 on pad columns), so no resampled matrix exists and no sample crosses
+devices.  Not ported here: the 2-D k x n mesh (``mesh_2d``, ``sharded2d_*``).
 """
 
 import dataclasses
@@ -40,11 +42,25 @@ from pymbar_tpu_torch.ops.mbar_core import (
     log_denominator_n,
 )
 from pymbar_tpu_torch.ops.wsum import wsum_dd
-from pymbar_tpu_torch.solvers import _newton_direction, host_adaptive_metrics, target_device
+from pymbar_tpu_torch.solvers import (
+    _adaptive_metrics,
+    _adaptive_stop,
+    _newton_direction,
+    host_adaptive_metrics,
+    target_device,
+)
 from pymbar_tpu_torch.solvers_large import (
+    _batch_chunk_width,
+    _batch_group_size,
+    _batch_loop_from_S_fn,
+    _batched_wsum_S,
+    _boot_info,
     _coarse_stride,
+    _counts_upload_dtype,
+    _materialize_th,
     _newton_factor,
     _polish_loop,
+    _use_resident_th,
     dev_split_planes,
     polish_to_host,
 )
@@ -63,6 +79,7 @@ __all__ = [
     "shard_dd_planes",
     "sharded_fused_lognum_dd",
     "sharded_wsum_dd",
+    "sharded_bootstrap_polish_dd",
     "sharded_solve_mbar_dd",
     "sharded_solve_mbar_for_all_states",
 ]
@@ -320,13 +337,11 @@ def sharded_solve_mbar(
     for it in range(1, maxiter + 1):
         f_sci, _, gn_sci, f_nr, _, gn_nr = sharded_adaptive_step(u_sh, N_k, f, gamma, mesh)
         take_sci = bool(gn_sci < gn_nr) or sci_iter < min_sc_iter
-        f_old = f.cpu().numpy()
+        f_old = f
         f = f_sci if take_sci else f_nr
         sci_iter += int(take_sci)
-        max_delta, max_diff = host_adaptive_metrics(
-            f.cpu().numpy(), f_old, f_sci.cpu().numpy(), f_nr.cpu().numpy(), tol
-        )
-        if np.isnan(max_delta) or (max_delta < tol and max_diff < np.sqrt(tol)):
+        max_delta, max_diff = _adaptive_metrics(f, f_old, f_sci, f_nr, tol)
+        if bool(_adaptive_stop(max_delta, max_diff, tol)):
             converged = True
             break
 
@@ -389,27 +404,200 @@ def sharded_wsum_dd(u_hi_s, u_lo_s, g_hi, g_lo, mesh, c=None):
     return dd_from_f64(_dd_combine_partials(parts, mesh))
 
 
-def _sharded_gram(u_hi_s, N_k32, f32_val, mesh):
+def _sharded_gram(u_hi_s, N_k32, f32_val, mesh, c=None):
     """float32 Gram of n-sharded hi planes: per-shard f32 products with f64
     accumulation (:func:`gram_f32_acc64`, pad columns weigh 0), combined:
-    (W W^T, sum_n W_nk) in float64."""
+    (W diag(c) W^T, sum_n c_n W_nk) in float64.  ``c`` optionally holds
+    per-shard (N_local,) float32 counts (a bootstrap replicate's Gram, the
+    fresh factor of its retry); without it c_n = 1."""
+    cs = [None] * len(mesh.devices) if c is None else c
     grams, colsums = [], []
-    for u, dev in zip(u_hi_s, mesh.devices):
-        gram, colsum = gram_f32_acc64(u, N_k32.to(dev), f32_val.to(dev))
+    for u, cc, dev in zip(u_hi_s, cs, mesh.devices):
+        gram, colsum = gram_f32_acc64(u, N_k32.to(dev), f32_val.to(dev), cc)
         grams.append(gram)
         colsums.append(colsum)
     return _psum(grams, mesh), _psum(colsums, mesh)
 
 
-def _sharded_polish_dd(u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, mesh, maxiter):
+def _sharded_polish_dd(u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, mesh, maxiter,
+                       c=None):
     """The n-sharded dd chord-Newton polish: the single-device polish loop
     (:func:`pymbar_tpu_torch.solvers_large._polish_loop`) with one
-    :func:`sharded_wsum_dd` per iteration."""
+    :func:`sharded_wsum_dd` per iteration.  ``c`` optionally holds a
+    bootstrap replicate's per-shard float32 counts (0 on pad columns), which
+    weigh every K1 pass."""
 
     def wsum(uh, ul, gh, gl):
-        return sharded_wsum_dd(uh, ul, gh, gl, mesh)
+        return sharded_wsum_dd(uh, ul, gh, gl, mesh, c=c)
 
     return _polish_loop(wsum, u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, maxiter)
+
+
+def _sharded_materialize_th(u_hi_s, u_lo_s, g0h, g0l, mesh, n_chunk):
+    """Each shard's base-point fast plane
+    (:func:`pymbar_tpu_torch.solvers_large._materialize_th`): the column
+    stabilizer is column-local and K unsharded, so no communication; the
+    result shards like the planes."""
+    return [
+        _materialize_th(uh, ul, g0h.to(dev), g0l.to(dev), n_chunk)
+        for uh, ul, dev in zip(u_hi_s, u_lo_s, mesh.devices)
+    ]
+
+
+def _sharded_batch_S_fn(u_hi_s, u_lo_s, C_s, mesh, n_chunk, th_s=None):
+    """The batched engines' weight-sum pass over n-sharded planes:
+    :func:`_batched_wsum_S` on every shard, the (B, K) partials psummed.
+    The denominators are shard-local (K is unsharded) and zero-count pad
+    columns add exactly 0.  ``C_s``: per-shard (B, N_local) counts;
+    ``th_s``: per-shard resident fast planes or None."""
+    ths = [None] * len(mesh.devices) if th_s is None else th_s
+
+    def S_fn(g0h, g0l, R, exact):
+        parts = [
+            _batched_wsum_S(uh, ul, g0h.to(dev), g0l.to(dev), R.to(dev), C, n_chunk, exact, th=th)
+            for uh, ul, C, th, dev in zip(u_hi_s, u_lo_s, C_s, ths, mesh.devices)
+        ]
+        return _psum(parts, mesh)
+
+    return S_fn
+
+
+def _sharded_polish_dd_batch(u_hi_s, u_lo_s, C_s, N_k64, f0, hinv, tol, gamma, mesh, maxiter,
+                             n_chunk, th_s=None):
+    """All replicates of a group batched on the n-sharded planes: the
+    single-card engine's two-phase loop
+    (:func:`pymbar_tpu_torch.solvers_large._batch_loop_from_S_fn`) over
+    :func:`_sharded_batch_S_fn`, one psum of the (B, K) sums per
+    iteration.  Returns (F, iters, deltas, converged, at_floor)."""
+    S_fn = _sharded_batch_S_fn(u_hi_s, u_lo_s, C_s, mesh, n_chunk, th_s)
+    return _batch_loop_from_S_fn(S_fn, C_s[0].shape[0], N_k64, f0, hinv, tol, gamma, maxiter)
+
+
+def _shards_per_card(mesh):
+    """The largest number of shards that share one device."""
+    return max(mesh.devices.count(d) for d in set(mesh.devices))
+
+
+def sharded_bootstrap_polish_dd(
+    u_hi_s,
+    u_lo_s,
+    N_k,
+    f_k,
+    hinv,
+    counts,
+    mesh,
+    tol=1.0e-12,
+    maxiter=16,
+    gamma=1.0,
+    verbose=False,
+    mode="batched",
+):
+    """Solve B bootstrap replicates on the resident n-sharded dd planes.
+
+    The mesh twin of
+    :func:`pymbar_tpu_torch.solvers_large.bootstrap_polish_dd` and the
+    counterpart of the JAX package's ``sharded_bootstrap_polish_dd`` (minus
+    its TPU knob ``fast_exp``).  ``u_hi_s``/``u_lo_s``: the shards of
+    :func:`shard_dd_planes`; ``counts``: (B, N) numpy resample
+    multiplicities over the N real samples, which each shard receives for
+    its own columns (0 on pad columns).  ``mode="batched"`` (default)
+    advances every replicate of a group per iteration from one shared exp
+    stream of each shard and one psum of the (B, K) sums
+    (:func:`_sharded_polish_dd_batch`); the groups, the uint8 count upload
+    and the resident fast plane are budgeted per device, over the shards
+    that share it.  A replicate that does not converge retries once with a
+    fresh counts-weighted factor (:func:`_sharded_gram` with counts) and
+    one more counts-weighted polish (:func:`_sharded_polish_dd` with counts: one K1
+    launch per shard per iteration).  ``mode="serial"`` polishes each
+    replicate in turn that way, from the base factor ``hinv``.
+
+    Returns (f_boots (B, K) float64 ndarray, n_fail, info): ``info`` as the
+    single-card engine's (``at_floor``, ``n_at_floor``,
+    ``n_tol_converged``); the serial mode adds ``polish_iterations`` (B,),
+    K1 passes of the mesh each, and the batched mode ``exact_iters`` (B,),
+    the exact-phase iterations of each replicate.  Given the same base f_k,
+    factor and counts, both stop each replicate as the single-card engine
+    does (the same rules on the same deltas, to rounding).
+    """
+    dev0 = mesh.devices[0]
+    counts = np.asarray(counts)
+    B, N = counts.shape
+    K = u_hi_s[0].shape[0]
+    w = u_hi_s[0].shape[1]
+    N_k64 = _vec(np.asarray(N_k, dtype=np.float64), torch.float64, dev0)
+    N_k32 = N_k64.to(torch.float32)
+    logN = torch.log(N_k64)
+    f0 = _vec(np.array(f_k, dtype=np.float64), torch.float64, dev0)
+    f0 = f0 - f0[0]
+    hinv = _vec(hinv if torch.is_tensor(hinv) else np.array(hinv), torch.float64, dev0)
+
+    def count_shards(c_rows, dtype):
+        return _split_columns(torch.as_tensor(np.ascontiguousarray(c_rows, dtype=dtype)),
+                              mesh, 0)[0]
+
+    def retry(c_s, f_b):
+        gram_b, colsum_b = _sharded_gram(u_hi_s, N_k32, f_b.to(torch.float32), mesh, c=c_s)
+        hinv_b = _newton_factor(gram_b, colsum_b, N_k64)
+        return polish_to_host(_sharded_polish_dd(
+            u_hi_s, u_lo_s, N_k64, f_b, hinv_b, logN, tol, gamma, mesh, maxiter, c=c_s))
+
+    f_boots = np.zeros((B, K))
+    at_floor = np.zeros(B, bool)
+    n_fail = 0
+    if mode == "serial":
+        iterations = np.zeros(B, np.int64)
+        for b in range(B):
+            c_s = count_shards(counts[b], np.float32)
+            f_b, iterations[b], _g, _d, converged, floor_b = polish_to_host(_sharded_polish_dd(
+                u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, mesh, maxiter, c=c_s))
+            if not converged:
+                f_b, it2, _g, _d, converged, floor_b = retry(c_s, f_b)
+                iterations[b] += it2
+            at_floor[b] = converged and floor_b
+            n_fail += not converged
+            f_boots[b] = f_b.cpu().numpy()
+            if verbose and (b + 1) % max(1, B // 10) == 0:
+                logger.info(f"Calculated {b + 1:d}/{B:d} bootstrap samples")
+        info = _boot_info(at_floor, B, n_fail)
+        info["polish_iterations"] = iterations
+        return f_boots, n_fail, info
+    if mode != "batched":
+        raise ValueError(f"sharded_bootstrap_polish_dd: unknown mode {mode!r}")
+
+    # budgets per device: the columns of every shard that shares it
+    cols_per_card = w * _shards_per_card(mesh)
+    n_chunk = _batch_chunk_width(K, w)
+    group = _batch_group_size(B, cols_per_card)
+    th_s = None
+    if _use_resident_th(K, cols_per_card):
+        g0h, g0l = dd_from_f64(f0 + logN)
+        th_s = _sharded_materialize_th(u_hi_s, u_lo_s, g0h, g0l, mesh, n_chunk)
+    up_dtype = _counts_upload_dtype(counts)
+    retry_rows = []
+    exact_iters = np.zeros(B, np.int32)
+    for s in range(0, B, group):
+        e = min(B, s + group)
+        C_s = count_shards(counts[s:e], up_dtype)
+        F, iters, _deltas, conv, floor = _sharded_polish_dd_batch(
+            u_hi_s, u_lo_s, C_s, N_k64, f0, hinv, tol, gamma, mesh, maxiter, n_chunk, th_s=th_s)
+        f_boots[s:e] = F.cpu().numpy()
+        at_floor[s:e] = floor.cpu().numpy()
+        exact_iters[s:e] = iters.cpu().numpy()
+        retry_rows.extend(s + i for i in np.nonzero(~conv.cpu().numpy())[0])
+        del C_s
+        if verbose:
+            logger.info(f"Calculated {e:d}/{B:d} bootstrap samples (batched)")
+    del th_s  # release the fast-plane shards before the retries
+    for b in retry_rows:
+        c_s = count_shards(counts[b], np.float32)
+        f_b, _it, _g, _d, converged, floor_b = retry(
+            c_s, torch.as_tensor(f_boots[b], device=dev0))
+        at_floor[b] = converged and floor_b
+        n_fail += not converged
+        f_boots[b] = f_b.cpu().numpy()
+    info = _boot_info(at_floor, B, n_fail)
+    info["exact_iters"] = exact_iters
+    return f_boots, n_fail, info
 
 
 def _strided_shards(u_s, mesh, stride):
@@ -433,6 +621,7 @@ def sharded_solve_mbar_dd(
     f32_maxiter=40,
     polish_maxiter=12,
     gamma=1.0,
+    return_state=False,
 ):
     """Double-word MBAR solve with the planes sharded along n.
 
@@ -447,7 +636,9 @@ def sharded_solve_mbar_dd(
     phase, a fresh factor and one more polish.  The caller supplies
     preconditioned (hi, lo) planes (numpy or float32 tensors; they are
     copied shard by shard to the mesh devices).  All states must have
-    samples.  Returns (f_k float64 ndarray, info dict).
+    samples.  Returns (f_k float64 ndarray, info dict); with
+    ``return_state`` the info also holds ``planes``, the (hi, lo) shard
+    lists, for follow-on solves on the same data (bootstrap replicates).
     """
     if mesh is None:
         mesh = default_mesh()
@@ -554,11 +745,14 @@ def sharded_solve_mbar_dd(
         phase2_s=time.time() - t_phase2,
         hinv=hinv,
     )
+    if return_state:
+        info["planes"] = (u_hi_s, u_lo_s)
     return f64.cpu().numpy(), info
 
 
 def sharded_solve_mbar_for_all_states(
-    u_kn, N_k, f_k, states_with_samples, mesh=None, tol=1.0e-12
+    u_kn, N_k, f_k, states_with_samples, mesh=None, tol=1.0e-12, bootstrap_counts=None,
+    verbose=False,
 ):
     """The sharded counterpart of ``solve_mbar_for_all_states``, the MBAR
     class's mesh front door.
@@ -571,6 +765,13 @@ def sharded_solve_mbar_for_all_states(
     the mesh) or numpy (split on the host).  Returns (f_k ndarray, list of
     the solve's result dict), as the port's single-device front door; the
     JAX package returns f_k alone.
+
+    With ``bootstrap_counts`` (a (B, N) resample-multiplicity matrix; every
+    state must have samples, else ValueError) the B replicates are also
+    solved on the same sharded planes from the base solution and its chord
+    factor (:func:`sharded_bootstrap_polish_dd`), and the return is (f_k,
+    results, f_boots (B, K), n_fail, info); the JAX package returns (f_k,
+    f_boots, n_fail, info).
     """
     if mesh is None:
         mesh = default_mesh()
@@ -578,6 +779,12 @@ def sharded_solve_mbar_for_all_states(
     N_k = np.asarray(N_k, dtype=np.float64)
     f_k = np.array(f_k, dtype=np.float64, copy=True)
     sws = np.asarray(states_with_samples)
+    if bootstrap_counts is not None and len(sws) < len(N_k):
+        raise ValueError(
+            "bootstrap_counts requires every state to have samples (MBAR "
+            "solves the replicates of a problem with an empty state one by "
+            "one, or batched on the card)"
+        )
 
     results = []
     if len(sws) > 1:
@@ -589,7 +796,8 @@ def sharded_solve_mbar_for_all_states(
         uh, ul = dev_split_planes(u_sub)
         del u_sub
         f_sub, info = sharded_solve_mbar_dd(
-            uh, ul, N_k[sws], f_k=f_k[sws] - f_k[sws][0], mesh=mesh, tol=tol
+            uh, ul, N_k[sws], f_k=f_k[sws] - f_k[sws][0], mesh=mesh, tol=tol,
+            return_state=bootstrap_counts is not None,
         )
         del uh, ul
         if not info["converged"]:
@@ -598,6 +806,15 @@ def sharded_solve_mbar_for_all_states(
                 f"(gnorm={info['gnorm']:.3e})"
             )
         f_k[sws] = f_sub
+        if bootstrap_counts is not None:
+            u_hi_s, u_lo_s = info.pop("planes")
+            f_boots, n_fail, boot_info = sharded_bootstrap_polish_dd(
+                u_hi_s, u_lo_s, N_k, f_sub, info["hinv"], bootstrap_counts, mesh, tol=tol,
+                verbose=verbose,
+            )
+            del u_hi_s, u_lo_s
+            results = [dict(x=f_sub, success=bool(info["converged"]), info=info)]
+            return f_k - f_k[0], results, f_boots, n_fail, boot_info
         results = [dict(x=f_sub, success=bool(info["converged"]), info=info)]
     else:
         f_k[sws] = 0.0

@@ -368,12 +368,14 @@ def _polish_while_dd_w(u_hi, u_lo, c, N_k64, f0, hinv, logN, tol, gamma, maxiter
     return _polish_loop(wsum, u_hi, u_lo, N_k64, f0, hinv, logN, tol, gamma, maxiter)
 
 
-# Ceiling on (planes + resident th) bytes for the batched bootstrap's
-# materialized fast-phase plane: 12 B/element (8 B dd planes + 4 B f32 th).
-# The value is the JAX package's, set beside a 16 GB TPU HBM; the H100's own
-# is still to be measured.  The flagship (K = 1024 x N = 999,424, 12.3 GB)
-# fits; above it the fast phase recomputes the exp every iteration.
-_TH_RESIDENT_BUDGET_BYTES = 12.4e9
+# Ceiling on (planes + resident th) bytes of one card for the batched
+# bootstrap's materialized fast-phase plane: 12 B/element (8 B dd planes +
+# 4 B f32 th), counted over every shard on the card.  Measured on an 80 GB
+# H100 (PERF.md): at K = 1024 x N = 2.56e6 (30.7 GB) the resident th
+# took the B = 64 polish from 2.48-2.52 s to 1.35-1.39 s at a peak of 53.0 GB
+# (42.6 GB recomputing, u_kn included); above the ceiling the fast phase
+# recomputes the exp every iteration.
+_TH_RESIDENT_BUDGET_BYTES = 32.0e9
 
 
 def _use_resident_th(K, N):
@@ -606,7 +608,11 @@ def _batch_chunk_width(K, N):
 
 def _batch_group_size(B, N):
     """Replicates per batched group: the device counts matrix is at most
-    ~2^28 elements (the JAX package's budget; to be measured here)."""
+    ~2^28 elements (the JAX package's budget).  On an H100 at the flagship
+    (N = 999,424, B = 256) one group of 256 took 0.89-0.90 s, groups of
+    128 1.20-1.25 s and of 64 1.96 s, at peaks within 0.22 GB of each other
+    (PERF.md): the largest group that the budget allows is the
+    fastest measured."""
     return int(max(1, min(B, max(8, (1 << 28) // max(N, 1)))))
 
 

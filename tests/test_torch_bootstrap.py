@@ -8,10 +8,12 @@ for ``MBAR(n_bootstraps=B)``.  Tolerances: ``bootstrap_polish_dd`` within
 relative, docs/numerics.md; the port's is plain f64), the port's batched
 engine within 5e-11 of its serial one (tests/test_solvers_large.py:324),
 ``MBAR``'s ``f_k_boots`` and bootstrap ``dDelta_f`` within 1e-9, and
-``bootstrap_rints`` equal.  Each JAX result is computed once per module.
+``bootstrap_rints`` equal.  The mesh bootstrap (CPU shards) is held to
+JAX's single-card replicates within 5e-10, and ``MBAR(mesh=,
+n_bootstraps=)`` to the JAX MBAR within tests/test_sharding.py's bars
+(5e-8; 5e-7 with an empty state); ``batched_bootstrap_solve`` to JAX's
+within 1e-9.  Each JAX result is computed once per module.
 """
-
-import logging
 
 import numpy as np
 import pytest
@@ -21,11 +23,14 @@ import jax.numpy as jnp
 
 import pymbar_tpu
 import pymbar_tpu_torch
+from pymbar_tpu import solvers as jsolvers
 from pymbar_tpu import solvers_large as jsl
 from pymbar_tpu.ops.doubledouble import dd_from_f64
 from pymbar_tpu.ops.mbar_core import precondition_u_kn
 from pymbar_tpu_torch import mbar as tmbar
+from pymbar_tpu_torch import solvers as tsolvers
 from pymbar_tpu_torch import solvers_large as tsl
+from pymbar_tpu_torch.parallel import sharding as ts
 
 # one intra-op thread per test process: the suite's workers share the CPUs
 torch.set_num_threads(1)
@@ -81,18 +86,30 @@ def port_batched(problem):
     return _port_polish(problem)
 
 
+@pytest.fixture(scope="module")
+def port_serial(problem):
+    return _port_polish(problem, mode="serial")
+
+
 def _identity(n_fail, info, n_boot):
     assert info["at_floor"].shape == (n_boot,)
     assert n_fail + info["n_at_floor"] + info["n_tol_converged"] == n_boot
 
 
-def test_batched_matches_jax(problem, port_batched):
+@pytest.fixture(scope="module")
+def jax_batched(problem):
+    """JAX's single-card bootstrap_polish_dd on the problem's planes."""
     p = problem
-    fb_j, nf_j, bi_j = jsl.bootstrap_polish_dd(
+    fb_j, nf_j, _bi = jsl.bootstrap_polish_dd(
         p["uh"], p["ul"], p["N_k"], p["f_k"], p["hinv"], p["counts"]
     )
+    return np.asarray(fb_j), nf_j
+
+
+def test_batched_matches_jax(problem, port_batched, jax_batched):
+    fb_j, nf_j = jax_batched
     fb, nf, bi = port_batched
-    assert np.max(np.abs(fb - np.asarray(fb_j))) <= 1e-10
+    assert np.max(np.abs(fb - fb_j)) <= 1e-10
     assert nf == nf_j == 0
     _identity(nf, bi, B)
     assert set(bi) >= {"phase_walls", "fast_iters", "exact_iters", "exact_deltas"}
@@ -101,9 +118,9 @@ def test_batched_matches_jax(problem, port_batched):
         "prep_s", "upload_s", "materialize_s", "fast_s", "exact_s", "total_s"}
 
 
-def test_batched_matches_serial(problem, port_batched):
+def test_batched_matches_serial(problem, port_batched, port_serial):
     fb, _nf, _bi = port_batched
-    fs, nf, bi = _port_polish(problem, mode="serial")
+    fs, nf, bi = port_serial
     assert nf == 0
     _identity(nf, bi, B)
     assert bi["polish_iterations"].shape == (B,) and np.all(bi["polish_iterations"] >= 1)
@@ -150,6 +167,85 @@ def test_counts_upload_forms_agree(problem, port_batched):
 
 
 @pytest.fixture(scope="module")
+def sharded_runs(problem):
+    """sharded_bootstrap_polish_dd on P CPU shards of the problem's planes,
+    from JAX's base solution and chord factor, cached by (P, mode)."""
+    runs = {}
+
+    def run(P, mode):
+        if (P, mode) not in runs:
+            p = problem
+            mesh = ts.default_mesh(P, device="cpu")
+            uh_s, ul_s, n_pad = ts.shard_dd_planes(p["uh"], p["ul"], mesh)
+            runs[P, mode] = (n_pad, *ts.sharded_bootstrap_polish_dd(
+                uh_s, ul_s, p["N_k"], p["f_k"], p["hinv"], p["counts"], mesh, mode=mode))
+        return runs[P, mode]
+
+    return run
+
+
+@pytest.mark.parametrize("mode", ["batched", "serial"])
+@pytest.mark.parametrize("P", [2, 3])
+def test_sharded_bootstrap_matches_jax(sharded_runs, jax_batched, P, mode):
+    """The mesh bootstrap on 2 and 3 CPU shards (3 leaves a pad column)
+    within 5e-10 of JAX's single-card replicates; serial within 5e-11 of
+    batched (tests/test_solvers_large.py:324's bar)."""
+    n_pad, fb, nf, bi = sharded_runs(P, mode)
+    assert n_pad == (0 if P == 2 else 1)
+    assert np.max(np.abs(fb - jax_batched[0])) <= 5e-10
+    assert nf == 0
+    _identity(nf, bi, B)
+    if mode == "serial":
+        assert bi["polish_iterations"].shape == (B,) and np.all(bi["polish_iterations"] >= 1)
+        assert np.max(np.abs(fb - sharded_runs(P, "batched")[1])) <= 5e-11
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_sharded_serial_stops_as_one_card(sharded_runs, port_serial, P):
+    """From the same base f_k, chord factor and counts, the mesh's serial
+    polish stops each replicate where the single card's does: the same stop
+    (d < tol or a noise-floor rule) after the same number of K1 passes."""
+    _n_pad, _fb, nf, bi = sharded_runs(P, "serial")
+    _fs, nf_1, bi_1 = port_serial
+    assert nf == nf_1
+    assert np.array_equal(bi["at_floor"], bi_1["at_floor"])
+    assert np.array_equal(bi["polish_iterations"], bi_1["polish_iterations"])
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_sharded_exact_phase_stops_as_one_card(problem, P):
+    """The batched exact phase from one start F on the mesh and on one card
+    stops every replicate alike (same stop, same iterations, at_floor
+    counted alike).  The start is the single card's float32 fast phase: the
+    mesh's own fast phase sums its float32 partials per shard, so it may
+    hand the exact phase another start within _BATCH_FAST_TOL, and the
+    stops then differ while the fixed points agree (the 5e-10 of
+    test_sharded_bootstrap_matches_jax)."""
+    p = problem
+    uh, ul = torch.from_numpy(p["uh"]), torch.from_numpy(p["ul"])
+    K, N = uh.shape
+    C = torch.from_numpy(p["counts"].astype(np.uint8))
+    N_k64 = torch.from_numpy(p["N_k"])
+    f0 = torch.from_numpy(p["f_k"] - p["f_k"][0])
+    hinv = torch.from_numpy(np.array(p["hinv"]))
+    n_chunk = tsl._batch_chunk_width(K, N)
+    F, _it = tsl._polish_while_dd_batch_fast(uh, ul, C, N_k64, f0, hinv, 1.0, n_chunk)
+    one = tsl._polish_while_dd_batch_exact(uh, ul, C, N_k64, F, f0, hinv, 1e-12, 1.0, 16, n_chunk)
+    mesh = ts.default_mesh(P, device="cpu")
+    uh_s, ul_s, _n_pad = ts.shard_dd_planes(p["uh"], p["ul"], mesh)
+    C_s = ts._split_columns(C, mesh, 0)[0]
+    S_fn = ts._sharded_batch_S_fn(uh_s, ul_s, C_s, mesh, tsl._batch_chunk_width(K, uh_s[0].shape[1]))
+    on_mesh = tsl._batch_exact_from_S_fn(S_fn, F, N_k64, f0, hinv, 1e-12, 1.0, 16)
+    for name, a, b in zip(("F", "iters", "deltas", "converged", "at_floor"), on_mesh, one):
+        if name == "F":
+            assert float((a - b).abs().max()) <= 1e-13
+        elif name == "deltas":
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.fixture(scope="module")
 def jax_dd_bootstrap(problem):
     p = problem
     return jsl.solve_mbar_dd_bootstrap(p["u64"], p["N_k"], np.zeros(len(p["N_k"])), p["counts"])
@@ -187,13 +283,17 @@ def _quickstart():
     return u_kn, N_k
 
 
+def _dd_pair_problem():
+    return _oscillators(32, 256, seed=4)
+
+
 @pytest.fixture(scope="module")
 def mbar_pairs():
     """(port MBAR, JAX MBAR) with one rseed: the dd counts route (K = 32 x
     256, an explicit dd protocol, B = 6) and the sequential route (the
     quickstart, state 2 empty, default protocols, B = 8)."""
     dd = (dict(method="dd"),)
-    u, N_k = _oscillators(32, 256, seed=4)
+    u, N_k = _dd_pair_problem()
     kw = dict(solver_protocol=dd, n_bootstraps=B, rseed=11)
     out = {"dd": (pymbar_tpu_torch.MBAR(u, N_k, device="cpu", **kw),
                   pymbar_tpu.MBAR(u, N_k, **kw))}
@@ -252,20 +352,108 @@ def test_bootstrap_counts_layout():
     assert wide.dtype == np.float32 and wide[0, 0] == 70000
 
 
-def test_auto_mesh_bootstrap_stays_on_one_card(monkeypatch, caplog):
-    """Where mesh="auto" would take several cards, a bootstrap runs on one
-    (the mesh bootstrap is not yet ported) and says so."""
+def _assert_mesh_bootstrap_matches_jax(m, ref):
+    """tests/test_sharding.py:454-464's bars against the JAX dd MBAR."""
+    assert m.mesh is not None and m.bootstrap_at_floor.shape == (B,)
+    assert np.array_equal(m.bootstrap_rints, ref.bootstrap_rints)
+    assert np.max(np.abs(m.f_k - ref.f_k)) <= 1e-9
+    assert np.max(np.abs(m.f_k_boots - np.asarray(ref.f_k_boots))) <= 5e-8
+    assert m.solver_results[0]["success"] and "planes" not in m.solver_results[0]["info"]
+
+
+def test_mesh_bootstrap_matches_jax(mbar_pairs):
+    """MBAR(mesh=4 CPU shards, n_bootstraps=B) solves the base and the
+    replicates on the mesh: the JAX dd MBAR's stream, its replicates."""
+    u, N_k = _dd_pair_problem()
+    mesh = ts.default_mesh(4, device="cpu")
+    m = pymbar_tpu_torch.MBAR(u, N_k, device="cpu", mesh=mesh, n_bootstraps=B, rseed=11)
+    assert m.mesh is mesh
+    _assert_mesh_bootstrap_matches_jax(m, mbar_pairs["dd"][1])
+
+
+def test_auto_mesh_bootstrap_takes_the_mesh(mbar_pairs, monkeypatch):
+    """Where mesh="auto" sees several cards (two, patched, whose mesh is two
+    CPU shards here) a bootstrap takes the mesh too."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(tmbar, "default_mesh", lambda: ts.default_mesh(2, device="cpu"))
+    u, N_k = _dd_pair_problem()
+    m = pymbar_tpu_torch.MBAR(u, N_k, device="cpu", mesh="auto", n_bootstraps=B, rseed=11)
+    assert len(m.mesh.devices) == 2
+    _assert_mesh_bootstrap_matches_jax(m, mbar_pairs["dd"][1])
 
-    def no_mesh(*a, **k):
-        raise AssertionError("the mesh was built")
 
-    monkeypatch.setattr(tmbar, "default_mesh", no_mesh)
-    u, N_k = _oscillators(4, 50, seed=2)
-    with caplog.at_level(logging.INFO, logger=tmbar.__name__):
-        m = pymbar_tpu_torch.MBAR(u, N_k, device="cpu", mesh="auto", n_bootstraps=2, rseed=1)
-    assert m.mesh is None and m.f_k_boots.shape == (2, 4)
-    assert "mesh bootstrap is not yet ported" in caplog.text
+def test_mesh_bootstrap_with_an_empty_state_falls_back(mbar_pairs):
+    """With an empty state the mesh solves the base and the replicates take
+    the sequential route on the CPU (tests/test_sharding.py:467-477's bar
+    against the JAX MBAR's sequential replicates)."""
+    u, N_k = _quickstart()
+    m = pymbar_tpu_torch.MBAR(u, N_k, device="cpu", mesh=ts.default_mesh(4, device="cpu"),
+                              n_bootstraps=8, rseed=3)
+    ref = mbar_pairs["sequential"][1]
+    assert m.mesh is not None and m.bootstrap_at_floor is None
+    assert np.array_equal(m.bootstrap_rints, ref.bootstrap_rints)
+    assert np.max(np.abs(m.f_k_boots - np.asarray(ref.f_k_boots))) <= 5e-7
+
+
+@pytest.mark.parametrize("case", ["quickstart", "one_early"])
+def test_batched_bootstrap_solve_matches_jax(mbar_pairs, monkeypatch, case):
+    """solvers.batched_bootstrap_solve against pymbar_tpu's on the
+    quickstart (state 2 empty, B = 8): within 1e-9, n_fail equal.
+    "one_early": replicate 0 resamples the data as it is, so from the base
+    solution it stops after 1 iteration while the others take ~50 forced SC
+    iterations; it leaves the batch then, and every replicate still gives
+    JAX's (and its own sequential solve's) result."""
+    u, N_k = _quickstart()
+    ours, ref = mbar_pairs["sequential"]
+    rints = ours.bootstrap_rints.copy()
+    kw = {}
+    if case == "one_early":
+        rints[0] = np.arange(u.shape[1])
+        kw = dict(min_sc_iter=50)
+    batch_sizes = []
+    candidates = tsolvers._adaptive_candidates
+
+    def recording(U, *a):
+        batch_sizes.append(U.shape[0])
+        return candidates(U, *a)
+
+    monkeypatch.setattr(tsolvers, "_adaptive_candidates", recording)
+    fb, nf = tsolvers.batched_bootstrap_solve(u, N_k, ours.f_k, rints, device="cpu", **kw)
+    fb_j, nf_j = jsolvers.batched_bootstrap_solve(u, N_k, ref.f_k, rints, **kw)
+    assert nf == nf_j == 0 and fb.shape == (8, 5) and np.all(fb[:, 0] == 0.0)
+    assert np.max(np.abs(fb - np.asarray(fb_j))) <= 1e-9
+    if case == "quickstart":
+        assert np.max(np.abs(fb - ours.f_k_boots)) <= 1e-9
+    else:
+        assert batch_sizes[:2] == [8, 7] and batch_sizes.count(7) >= 50
+        assert batch_sizes == sorted(batch_sizes, reverse=True)
+        assert np.max(np.abs(fb[0] - ours.f_k)) <= 1e-12
+        # a chunk of 3 replicates holds the same results
+        fb3, _ = tsolvers.batched_bootstrap_solve(u, N_k, ours.f_k, rints, device="cpu",
+                                                  chunk_bytes=3 * 6 * 8 * u.size, **kw)
+        assert np.max(np.abs(fb3 - fb)) <= 1e-12
+
+
+def test_mbar_batched_bootstrap_route(mbar_pairs, monkeypatch):
+    """MBAR._bootstrap_solve_batched, its gate patched open on the CPU,
+    against the JAX MBAR's sequential replicates."""
+    monkeypatch.setattr(tmbar.MBAR, "_batched_boot_sized", lambda self: True)
+    calls = []
+    solve = tsolvers.batched_bootstrap_solve
+
+    def counted(*a, **k):
+        calls.append(1)
+        return solve(*a, **k)
+
+    monkeypatch.setattr(tsolvers, "batched_bootstrap_solve", counted)
+    u, N_k = _quickstart()
+    m = pymbar_tpu_torch.MBAR(u, N_k, device="cpu", n_bootstraps=8, rseed=3)
+    ref = mbar_pairs["sequential"][1]
+    assert calls == [1] and m.bootstrap_at_floor is None
+    assert np.max(np.abs(m.f_k_boots - np.asarray(ref.f_k_boots))) <= 1e-9
+    # a BAR start keeps the sequential route, as in the JAX package
+    m = pymbar_tpu_torch.MBAR(u, N_k, device="cpu", n_bootstraps=2, rseed=3, initialize="BAR")
+    assert calls == [1] and m.f_k_boots.shape == (2, 5)
 
 
 def test_rints_follow_the_jax_stream_for_interleaved_samples():

@@ -218,9 +218,10 @@ def test_parameter_errors(probe):
         kw["n_bootstraps"] = 2
         kw["initialize"] = "BAR"
         kw["bootstrap_solver_protocol"] = (dict(method="nope"),)
-    elif probe == "mesh":  # the mesh bootstrap is not ported yet
+    elif probe == "mesh":  # a mesh solve's replicates (state 2 empty) under an unknown protocol
         kw["mesh"] = default_mesh(2, device="cpu")
         kw["n_bootstraps"] = 10
+        kw["bootstrap_solver_protocol"] = (dict(method="nope"),)
     elif probe == "device_mismatch":
         u, kw = torch.from_numpy(u), dict(device="meta")
     if probe in ("svd", "bootstrap_uncertainty"):
@@ -245,7 +246,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "pymbar_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names_walked = {str(p.relative_to(REPO)) for p in files}
     for module in ("checkpoint", "other_estimators", "timeseries", "confidenceintervals",
-                   "utils_for_testing",
+                   "utils_for_testing", "config", "mbar_solvers",
                    "testsystems/exponential_distributions", "testsystems/gaussian_work",
                    "testsystems/timeseries"):
         assert f"pymbar_tpu_torch/{module}.py" in names_walked

@@ -87,6 +87,33 @@ def test_matches_jax(problem, chunking, name):
         _close(o, r)
 
 
+BATCHED = [
+    "log_denominator_n", "log_numerator_k", "core_stats", "self_consistent_update",
+    "mbar_gradient", "mbar_objective", "mbar_objective_and_gradient", "mbar_w_nk_gram",
+    "mbar_hessian", "precondition_u_kn",
+]
+
+
+@pytest.mark.parametrize("name", BATCHED)
+def test_batched_forms_match_jax(problem, chunking, name):
+    """A leading batch axis: three replicates (the problem's columns
+    resampled, each at its own f_k; precondition_u_kn shares one f_k) in
+    one call, each against JAX's call on that replicate alone."""
+    u, N_k, f = problem
+    rng = np.random.default_rng(11)
+    cols = [np.arange(u.shape[1])] + [rng.integers(u.shape[1], size=u.shape[1]) for _ in "ab"]
+    u_b = np.stack([u[:, c] for c in cols])
+    f_b = np.stack([f, 0.9 * f, 1.1 * f]) if name != "precondition_u_kn" else f
+    ours = _np(CASES[name](tc, torch.from_numpy(u_b), torch.from_numpy(N_k),
+                           torch.from_numpy(f_b)))
+    for b in range(len(cols)):
+        f_one = f_b[b] if f_b.ndim == 2 else f
+        ref = _np(CASES[name](jc, jnp.asarray(u_b[b]), jnp.asarray(N_k), jnp.asarray(f_one)))
+        for o, r in zip(ours if isinstance(ours, tuple) else (ours,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            _close(o[b], r)
+
+
 @pytest.mark.parametrize("pad_columns", [0, 5])
 def test_gram_normalization_matches_jax(problem, chunking, pad_columns):
     """Gram, column sums and the row-check aggregates; sentinel pad columns

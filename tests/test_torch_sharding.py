@@ -336,10 +336,14 @@ def test_mesh_with_a_protocol_warns_and_is_ignored(problem, caplog):
     assert any("mesh is ignored" in r.message for r in caplog.records)
 
 
-def test_mesh_with_bootstraps_raises(problem):
-    u_kn, N_k, _, _ = problem
-    with pytest.raises(ParameterError):
-        pymbar_tpu_torch.MBAR(u_kn, N_k.astype(int), mesh=_mesh(2), n_bootstraps=4, device="cpu")
+def test_bootstrap_counts_with_an_empty_state_raise(with_empty_state):
+    """The counts route needs every state sampled, as in the JAX package
+    (its MBAR falls back for an empty state)."""
+    u, N, _, _ = with_empty_state
+    counts = np.ones((2, u.shape[1]), np.uint16)
+    with pytest.raises(ValueError, match="every state"):
+        ts.sharded_solve_mbar_for_all_states(u, N, np.zeros(len(N)), np.where(N > 0)[0],
+                                             _mesh(2), bootstrap_counts=counts)
 
 
 def test_default_mesh(monkeypatch):

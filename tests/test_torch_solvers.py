@@ -12,12 +12,16 @@ import torch
 
 import jax.numpy as jnp
 
+import pymbar_tpu_torch
+from helpers import Z_SCALE
+from numpy.testing import assert_array_almost_equal
 from pymbar_tpu import solvers as js
 from pymbar_tpu import solvers_large as jsl
 from pymbar_tpu.utils import ParameterError as JaxParameterError
 from pymbar_tpu_torch import solvers as ts
 from pymbar_tpu_torch import solvers_large as tsl
 from pymbar_tpu_torch.utils import ParameterError
+from pymbar_tpu_torch.utils_for_testing import oscillators
 
 # one intra-op thread per test process: the suite's workers share the CPUs
 torch.set_num_threads(1)
@@ -81,11 +85,47 @@ def test_solve_mbar_for_all_states_with_empty_state():
     assert np.max(np.abs(f - f_ref)) <= 1e-10
 
 
-@pytest.mark.parametrize("method", ["anderson", "BFGS"])
-def test_not_yet_ported_methods_raise(small, method):
+@pytest.mark.parametrize("method,tol", [("anderson", 1e-10), ("BFGS", 1e-8)])
+def test_anderson_and_bfgs_match_jax(small, method, tol):
+    """anderson and the BFGS stage (the torch form of jax.scipy's BFGS,
+    which stops on its default gtol 1e-5: the JAX package's tol does not
+    reach it) against pymbar_tpu's on the same inputs."""
     u, N_k = small
-    with pytest.raises(ParameterError, match="not yet ported"):
-        ts.solve_mbar_once(u, N_k, np.zeros(len(N_k)), method=method)
+    f0 = np.zeros(len(N_k))
+    f, res = ts.solve_mbar_once(u, N_k, f0, method=method)
+    f_ref, res_ref = js.solve_mbar_once(u, N_k, f0, method=method)
+    assert bool(res["success"]) == bool(res_ref["success"]) is True
+    assert np.max(np.abs(f - np.asarray(f_ref))) <= tol
+    assert f[0] == 0.0 and f.shape == (len(N_k),)
+
+
+@pytest.mark.parametrize("method", ["anderson", "BFGS"])
+def test_protocol_reaches_analytic_accuracy(method):
+    """tests/test_mbar_solvers.py:105-115 through the port's MBAR: the
+    protocol's solve, re-solved warm from it, within |z| < 6 of the
+    analytic free energies."""
+    _name, u_kn, N_k, _s, test = oscillators(50, 100, provide_test=True, seed=12)
+    fa = test.analytical_free_energies()
+    fa = fa[1:] - fa[0]
+    prot = ({"method": method},)
+    m = pymbar_tpu_torch.MBAR(u_kn, N_k, solver_protocol=prot, device="cpu")
+    assert m.solver_results[0]["success"]
+    m = pymbar_tpu_torch.MBAR(u_kn, N_k, initial_f_k=m.f_k, solver_protocol=prot, device="cpu")
+    res = m.compute_free_energy_differences()
+    z = (res["Delta_f"][0, 1:] - fa) / res["dDelta_f"][0, 1:]
+    assert_array_almost_equal(z / Z_SCALE, np.zeros(len(z)), decimal=0)
+
+
+def test_bfgs_line_search_pieces_match_jax():
+    """The BFGS stage's interpolation steps against jax.scipy's."""
+    from jax._src.scipy.optimize import line_search as jls
+
+    args = [(0.0, 1.0, -2.0, 1.0, 0.5, 0.5, 0.6), (0.0, 1.0, -2.0, 0.4, 0.9, 1.0, 3.0)]
+    for a in args:
+        assert ts._cubicmin(*map(np.float64, a)) == pytest.approx(
+            float(jls._cubicmin(*a)), rel=1e-14)
+        assert ts._quadmin(*map(np.float64, a[:5])) == pytest.approx(
+            float(jls._quadmin(*a[:5])), rel=1e-14)
 
 
 def test_unknown_method_raises_like_jax(small):
