@@ -182,8 +182,36 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    BFGS on (b)'s problem: f_k within 1e-8 of its adaptive solve, with
    anderson's iterations, BFGS's iterations and objective evaluations.
 
+10. The 2-D k x n mesh (pymbar_tpu_torch.parallel.mesh_2d) on blocks of
+   cuda:0, each check on its own line with its wall and peak device memory.
+   (a) sharded2d_wsum_dd (the shift, K3 and K4 on every block under a shift
+   shared by each n column) against wsum.split_route on the same whole
+   planes, S within 1e-12 relative: a (2, 2) mesh on phase 3's planes (the
+   slice remade bit for bit from phase 3's generator state) at g of phase
+   3's solution, with the medians of 5 fenced calls of both beside phase
+   1b's split-route time, and of each kernel alone on one block; (4, 1)
+   and (1, 4) at (8192, 65536); (3, 2) at (8193, 4099), which pads both
+   axes.  Two calls give the same bits, each call launches each kernel
+   kd x nd times, pad states give S = 0, and an all-pad matrix S == 0
+   exactly.  On every mesh each kernel is held against its plain version
+   on block (0, 0), with the inputs the path gives it there (column 0's
+   shared shift, its denominators summed over the k-blocks): the shift
+   exactly, K3 and K4 within 1e-13 relative; their largest absolute
+   errors join phase 1b's in the kernels line.  (b) sharded2d_solve_mbar_dd on phase
+   3's planes (the slice; stride2 = 1, so phase 1 and the Gram read the
+   whole hi plane) on a (2, 2) mesh, the planes dropped once the blocks
+   exist (phase 3's float64 u_kn freed before; what is resident then must
+   be the blocks alone, and the peak after it is read): converged, Delta_f within
+   5e-10 of phase 3's solve, gradient norm / N <= 1e-11 by a plain float64
+   evaluation on the slice remade, no K1 launch, and the shift, K3 and K4
+   launched 4 times per weight-sum pass of the polish; phase1_s,
+   phase2_s and the iterations.  (c) sharded2d_solve_mbar (float64
+   Anderson, no kernel) on a (2, 2) mesh at K = 1024 oscillators x 96
+   samples (805 MB): converged, f within 1e-9 of the single-card MBAR.
+
 Then the card, the kernels line (K1's launches: phase 2's MBAR and phase
-9 (a)'s) and {"ok": true, "device": {...}} close the output.  Without a CUDA card, or without the repository beside this file,
+9 (a)'s; the shift's, K3's and K4's: phase 3's MBAR and phase 10 (b)'s
+solve) and {"ok": true, "device": {...}} close the output.  Without a CUDA card, or without the repository beside this file,
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
@@ -920,8 +948,8 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
         out = np.zeros((n, m.K))
         for b in range(n):
             idx = torch.as_tensor(m.bootstrap_rints[b], device=dev)
-            out[b], _ = solve_mbar_for_all_states(m.u_kn.index_select(1, idx), m.N_k, m.f_k,
-                                                  m.states_with_samples, prot)
+            out[b] = solve_mbar_for_all_states(m.u_kn.index_select(1, idx), m.N_k, m.f_k,
+                                               m.states_with_samples, prot)
         return out
 
     solve = wrapped(tsolvers, "batched_bootstrap_solve",
@@ -1026,6 +1054,223 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
             fail(f"{method}: f_k differs from the adaptive solve by {dev_d:.3e}")
     return mesh_k1
 
+
+def phase10(torch, np, slice_state, f_slice, route_ms_1b):
+    """The 2-D k x n mesh on blocks of cuda:0.  ``slice_state``: the
+    generator state phase 3 made its u_kn from (so the slice is remade bit
+    for bit); ``f_slice``: phase 3's free energies; ``route_ms_1b``: phase
+    1b's split-route median at the slice's shape.  Returns the shift's,
+    K3's and K4's launches in (b)'s solve, the main path's run of this
+    phase, and each kernel's largest absolute error against its plain
+    version on the blocks of (a)."""
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.ops import wsum, wsum_split
+    from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
+    from pymbar_tpu_torch.ops.mbar_core import mbar_gradient
+    from pymbar_tpu_torch.parallel import sharding
+    from pymbar_tpu_torch.solvers_large import dev_split_planes
+
+    dev = torch.device("cuda", 0)
+    counters = ("SHIFT_LAUNCHES", "DENOM_SUMS_LAUNCHES", "WSUM_DENOM_LAUNCHES")
+    N_slice = SLICE_K * SLICE_NPK
+    t_phase = time.perf_counter()
+
+    block_err = {"column_shift": 0.0, "denom_sums_dd": 0.0, "wsum_denom_dd": 0.0}
+
+    def launches():
+        return [getattr(wsum_split, n) for n in counters]
+
+    def slice_u():
+        gen = torch.Generator(device=dev)
+        gen.set_state(slice_state)
+        return oscillators(torch, SLICE_K, SLICE_NPK, gen, dev)
+
+    def start():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def wsum_2d(planes, shape, label, timed=False):
+        """(a): sharded2d_wsum_dd on a shape mesh of cuda:0 against the
+        split route on the same whole planes; two calls, the same bits;
+        kd x nd launches of each kernel per call; pad states S = 0."""
+        t0 = start()
+        uh, ul, gh, gl = planes
+        K = uh.shape[0]
+        mesh = sharding.mesh_2d(*shape, device=dev)
+        hi, lo, N_pad, _, pads = sharding.shard_dd_planes_2d(uh, ul, np.ones(K), np.zeros(K), mesh)
+        g2 = [torch.nn.functional.pad(g, (0, len(N_pad) - K)) for g in (gh, gl)]
+        before = launches()
+        S = dd_to_f64(*sharding.sharded2d_wsum_dd(hi, lo, *g2, mesh))
+        torch.cuda.synchronize()
+        rose = [a - b for a, b in zip(launches(), before)]
+        S_again = dd_to_f64(*sharding.sharded2d_wsum_dd(hi, lo, *g2, mesh))
+        S_route = dd_to_f64(*wsum.split_route(uh, ul, gh, gl))
+        torch.cuda.synchronize()
+        e = rel_err(S[:K], S_route)
+        line = dict(case=label, mesh=list(shape), K=K, N=uh.shape[1], pads=list(pads),
+                    rel_err_vs_split_route=e, same_bits=bool(torch.equal(S, S_again)),
+                    launches_per_call=rose, pad_states_zero=bool((S[K:] == 0).all()))
+        # each kernel against its plain version on block (0, 0), at the block
+        # shape and with the inputs the 2-D path gives it: column 0's shared
+        # shift and its denominators summed over the k-blocks, pad-masked
+        kb = hi[0][0].shape[0]
+        col0 = [(hi[i][0], lo[i][0], g2[0][i * kb:(i + 1) * kb], g2[1][i * kb:(i + 1) * kb])
+                for i in range(shape[0])]
+        b = col0[0]
+        m_own = wsum_split.column_shift(b[0], b[2])
+        m = m_own
+        for blk in col0[1:]:
+            m = torch.maximum(m, wsum_split.column_shift(blk[0], blk[2]))
+        d_own = dd_to_f64(*wsum_split.denom_sums_dd(*b, m))
+        d = d_own.clone()
+        for blk in col0[1:]:
+            d += dd_to_f64(*wsum_split.denom_sums_dd(*blk, m))
+        d = dd_from_f64(d.masked_fill_(m < wsum._PAD_M, 0.0))
+        S_blk = dd_to_f64(*wsum_split.wsum_denom_dd(*b, m, *d))
+        d_ref = dd_to_f64(*wsum_split.denom_sums_dd_plain(*b, m))
+        S_ref = dd_to_f64(*wsum_split.wsum_denom_dd_plain(*b, m, *d))
+        blk_err = dict(column_shift=float((m_own - wsum_split.column_shift_plain(b[0], b[2])).abs().max()),
+                       denom_sums_dd=float((d_own - d_ref).abs().max()),
+                       wsum_denom_dd=float((S_blk - S_ref).abs().max()))
+        blk_rel = dict(denom_sums_dd=rel_err(d_own, d_ref), wsum_denom_dd=rel_err(S_blk, S_ref))
+        for name, v in blk_err.items():
+            block_err[name] = max(block_err[name], v)
+        line.update(block_shape=list(b[0].shape), block_max_abs_err=blk_err, block_rel_err=blk_rel)
+        if not (blk_err["column_shift"] == 0.0 and max(blk_rel.values()) <= S_REL_TOL):
+            fail(f"{label}: a split kernel on block (0, 0) differs from its plain version: "
+                 f"{blk_err} {blk_rel}")
+        if timed:
+            block_ms = dict(
+                column_shift=median_ms(torch, lambda: wsum_split.column_shift(b[0], b[2])),
+                denom_sums_dd=median_ms(torch, lambda: wsum_split.denom_sums_dd(*b, m)),
+                wsum_denom_dd=median_ms(torch, lambda: wsum_split.wsum_denom_dd(*b, m, *d)))
+            block_plain_ms = dict(
+                column_shift=median_ms(torch, lambda: wsum_split.column_shift_plain(b[0], b[2])),
+                denom_sums_dd=median_ms(torch, lambda: wsum_split.denom_sums_dd_plain(*b, m)),
+                wsum_denom_dd=median_ms(torch,
+                                        lambda: wsum_split.wsum_denom_dd_plain(*b, m, *d)))
+            line.update(block_plain_ms=block_plain_ms)
+            line.update(ms=median_ms(torch, lambda: sharding.sharded2d_wsum_dd(hi, lo, *g2, mesh)),
+                        split_route_ms=median_ms(torch, lambda: wsum.split_route(uh, ul, gh, gl)),
+                        split_route_ms_phase1b=route_ms_1b, block_ms=block_ms)
+        line.update(s=time.perf_counter() - t0, max_memory_allocated=torch.cuda.max_memory_allocated())
+        emit("10a_wsum_2d", **line)
+        if not (e <= 1.0e-12 and line["same_bits"] and line["pad_states_zero"]
+                and rose == [shape[0] * shape[1]] * 3):
+            fail(f"sharded2d_wsum_dd on {label}: {line}")
+
+    # (a) at the slice's shape on phase 3's planes, g at phase 3's solution
+    u_kn, N_k, _fa, _x = slice_u()
+    uh, ul = dev_split_planes(u_kn)
+    del u_kn
+    torch.cuda.empty_cache()
+    logN = torch.log(torch.as_tensor(N_k, dtype=torch.float64, device=dev))
+    gh, gl = dd_from_f64(torch.as_tensor(f_slice, device=dev) + logN)
+    wsum_2d((uh, ul, gh, gl), (2, 2), f"{SLICE_K}x{N_slice} slice", timed=True)
+    torch.cuda.empty_cache()
+
+    # (b) the production path: the 2-D dd solve of the same planes, which it
+    # drops once the blocks exist (the solve holds their only references)
+    wsum.WSUM_LAUNCHES = 0
+    for n in counters:
+        setattr(wsum_split, n, 0)
+    planes = [uh, ul]
+    del uh, ul, gh, gl
+    # the solve's first core-stats call reads what is resident once the
+    # blocks exist and restarts the peak; the Gram is timed on its own
+    seen = {}
+    core_stats, gram = sharding.sharded2d_core_stats, sharding.sharded2d_gram
+
+    def first_core_stats(*a, **k):
+        if "resident" not in seen:
+            torch.cuda.synchronize()
+            seen["resident"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        return core_stats(*a, **k)
+
+    def timed_gram(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = gram(*a, **k)
+        torch.cuda.synchronize()
+        seen["gram_s"] = time.perf_counter() - t
+        return out
+
+    t0 = start()
+    sharding.sharded2d_core_stats, sharding.sharded2d_gram = first_core_stats, timed_gram
+    try:
+        f2d, info = sharding.sharded2d_solve_mbar_dd(planes.pop(0), planes.pop(0), N_k,
+                                                     mesh=sharding.mesh_2d(2, 2, device=dev))
+    finally:
+        sharding.sharded2d_core_stats, sharding.sharded2d_gram = core_stats, gram
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k1, split = wsum.WSUM_LAUNCHES, launches()
+    block_bytes = 8 * SLICE_K * N_slice
+    torch.cuda.empty_cache()
+    u_kn = slice_u()[0]
+    g64 = float(torch.linalg.norm(mbar_gradient(u_kn, np.asarray(N_k, np.float64), f2d))) / N_slice
+    del u_kn
+    torch.cuda.empty_cache()
+    # the polish's weight-sum passes; a dd Anderson fallback adds its
+    # iterations beyond the chord polish's deltas and one certificate pass
+    passes = info["polish_iterations"] + (info["polish_iterations"] > len(info["deltas"]))
+    df = float(np.abs(f2d - f_slice).max())
+    emit("10b_solve_2d", mesh=[2, 2], K=SLICE_K, N=N_slice, s=solve_s, phase1_s=info["phase1_s"],
+         phase2_s=info["phase2_s"], f32_iterations=info["f32_iterations"],
+         polish_iterations=info["polish_iterations"], deltas=info["deltas"],
+         converged=info["converged"], at_noise_floor=info["at_noise_floor"],
+         wsum_passes=passes, wsum_launches=k1, split_launches=split,
+         delta_f_max_err_vs_phase3=df, gradient_norm_per_sample=info["gnorm"] / N_slice,
+         f64_gradient_norm_per_sample=g64, gram_s=seen["gram_s"], block_bytes=block_bytes,
+         resident_once_sharded=seen["resident"], peak_once_sharded=peak)
+    if not seen["resident"] <= 1.05 * block_bytes:
+        fail(f"the planes outlived the sharding: {seen['resident']} bytes resident")
+    if not info["converged"] or not df <= MESH_DF_TOL or not g64 <= 1.0e-11:
+        fail(f"the 2-D dd solve: converged {info['converged']}, Delta_f {df:.3e} from phase 3, "
+             f"f64 gradient / N {g64:.3e}")
+    if k1 != 0 or passes <= 0 or split != [4 * passes] * 3:
+        fail(f"the 2-D dd solve launched K1 {k1} times and the split kernels {split} "
+             f"over {passes} weight-sum passes (4 blocks)")
+
+    # (a) on the smaller meshes and shapes, then an all-pad matrix
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for shape, K, N in (((4, 1), SLICE_K, 65536), ((1, 4), SLICE_K, 65536),
+                        ((3, 2), SLICE_K + 1, 4099)):
+        wsum_2d(make_planes(torch, K, N, gen, dev), shape, f"{K}x{N}")
+        torch.cuda.empty_cache()
+    uh = torch.full((300, 1000), 1.0e10, dtype=torch.float32, device=dev)
+    mesh = sharding.mesh_2d(2, 2, device=dev)
+    hi, lo, _, _, _ = sharding.shard_dd_planes_2d(uh, torch.zeros_like(uh), np.ones(300),
+                                                  np.zeros(300), mesh)
+    gh, gl = make_planes(torch, 300, 8, gen, dev)[2:]
+    S = dd_to_f64(*sharding.sharded2d_wsum_dd(hi, lo, gh, gl, mesh))
+    emit("10a_all_pad", mesh=[2, 2], K=300, N=1000, S_zero=bool((S == 0).all()))
+    if not bool((S == 0).all()):
+        fail("sharded2d_wsum_dd: an all-pad matrix gave S != 0")
+    del uh, hi, lo, S
+
+    # (c) the float64 Anderson solve (no kernel), under 1 GB of u_kn
+    u_kn, N_k, _fa, _x = oscillators(torch, FLAGSHIP_K, 96,
+                                     torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+    t0 = start()
+    f_c, info_c = sharding.sharded2d_solve_mbar(u_kn, N_k, mesh=sharding.mesh_2d(2, 2, device=dev))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    f_one = MBAR(u_kn, N_k).f_k
+    df = float(np.abs(f_c - f_one).max())
+    emit("10c_solve_2d_f64", mesh=[2, 2], K=FLAGSHIP_K, N=u_kn.shape[1], u_kn_bytes=u_kn.nbytes,
+         s=solve_s, success=info_c["success"], iterations=info_c["iterations"],
+         gnorm=info_c["gnorm"], f_max_err_vs_mbar=df, max_memory_allocated=peak)
+    if not (info_c["success"] and df <= 1.0e-9):
+        fail(f"sharded2d_solve_mbar: success {info_c['success']}, f {df:.3e} from MBAR")
+    del u_kn
+    torch.cuda.empty_cache()
+    emit("10_mesh_2d", s=time.perf_counter() - t_phase)
+    return split, block_err
 
 def main():
     import torch
@@ -1743,6 +1988,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 3: the many-state slice (split route, Theta on the card)
+    slice_state = gen.get_state()  # phase 10 remakes the slice from it
     u_kn, N_k, fa, _x = oscillators(torch, SLICE_K, SLICE_NPK, gen, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1803,6 +2049,7 @@ def main():
          k1_converged=info_k1["converged"], delta_f_max_err_vs_k1_route=df_err)
     if not df_err <= 1.0e-10:
         fail(f"split-route Delta_f differs from the K1-route solve by {df_err:.3e}")
+    f_slice = mbar.f_k.copy()
     del uh, ul, u_kn, mbar
     torch.cuda.empty_cache()
 
@@ -2139,6 +2386,9 @@ def main():
     mesh_boot_k1 = phase9(torch, np, u_kn, N_k, fa, f_flag, sigma_asym, single5)
     del u_kn, x_n
     torch.cuda.empty_cache()
+    mesh2d_split, mesh2d_err = phase10(torch, np, slice_state, f_slice, route_ms)
+    for name, e in mesh2d_err.items():
+        err[name] = max(err[name], e)
 
     # ---- the kernels line: launches from each one's main-path run
     K, Nf, Ns = FLAGSHIP_K, N_flag, N_slice
@@ -2147,13 +2397,13 @@ def main():
         ("wsum_dd", "pymbar_tpu_torch/csrc/wsum.cu", "pymbar_tpu/ops/pallas_kernels.py:584",
          flag_launches + mesh_boot_k1, bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
         ("column_shift", "pymbar_tpu_torch/csrc/wsum_split.cu",
-         "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0],
+         "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0] + mesh2d_split[0],
          bound(4 * KS * Ns + 4 * KS, 4 * Ns, 2 * KS * Ns, F32_OPS_PER_S)),
         ("denom_sums_dd", "pymbar_tpu_torch/csrc/wsum_split.cu",
-         "pymbar_tpu/ops/pallas_kernels.py:785", slice_split[1],
+         "pymbar_tpu/ops/pallas_kernels.py:785", slice_split[1] + mesh2d_split[1],
          bound(8 * KS * Ns + 8 * KS + 4 * Ns, 8 * Ns, 5 * KS * Ns, F64_OPS_PER_S)),
         ("wsum_denom_dd", "pymbar_tpu_torch/csrc/wsum_split.cu",
-         "pymbar_tpu/ops/pallas_kernels.py:890", slice_split[2],
+         "pymbar_tpu/ops/pallas_kernels.py:890", slice_split[2] + mesh2d_split[2],
          bound(8 * KS * Ns + 8 * KS + 12 * Ns, 8 * KS, 6 * KS * Ns, F64_OPS_PER_S)),
         ("logden_dd", "pymbar_tpu_torch/csrc/lognum.cu", "pymbar_tpu/ops/pallas_kernels.py:189",
          mesh_launches["LOGDEN_LAUNCHES"], bound(8 * K * Nf + 8 * K, 8 * Nf, 5 * K * Nf, F64_OPS_PER_S)),

@@ -795,8 +795,8 @@ def profile_batched_bootstrap(torch, card):
                 out = np.zeros((B, len(N_k)))
                 for b in range(B):
                     idx = torch.as_tensor(rints[b], device=u.device)
-                    out[b], _ = solve_mbar_for_all_states(u.index_select(1, idx), N_k, m.f_k,
-                                                          sws, prot)
+                    out[b] = solve_mbar_for_all_states(u.index_select(1, idx), N_k, m.f_k,
+                                                       sws, prot)
                 return out
 
             batched()  # warm-up

@@ -4,8 +4,9 @@ The MBAR solve and the free-energy differences, in PyTorch, with the
 double-word polish's weight-sum pass (``wsum_dd``, and above 4096 states
 its split pair ``denom_sums_dd`` + ``wsum_denom_dd``) and the lognum family
 (``logden_dd``, ``lognum_dd``, ``lognum_fused_dd``) as hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a), and the 1-D sample-sharded solve and
-bootstrap in :mod:`pymbar_tpu_torch.parallel` (``MBAR(mesh=)``).  The
+kernels for NVIDIA Hopper (sm_90a), the 1-D sample-sharded solve and
+bootstrap in :mod:`pymbar_tpu_torch.parallel` (``MBAR(mesh=)``) and its
+2-D state x sample mesh (``mesh_2d``, ``sharded2d_solve_mbar_dd``).  The
 reference's solver surface is :mod:`pymbar_tpu_torch.mbar_solvers`, the
 environment toggles :mod:`pymbar_tpu_torch.config`.  Entry points place
 numpy input on the CUDA card unless ``device="cpu"`` is asked for.
@@ -25,6 +26,8 @@ and ``compute_expectations``, ``compute_multiple_expectations``,
 that ``import pymbar_tpu_torch`` does not load it.
 """
 
+from importlib.metadata import PackageNotFoundError, version as _version
+
 from pymbar_tpu_torch import checkpoint  # noqa: F401
 from pymbar_tpu_torch import confidenceintervals  # noqa: F401
 from pymbar_tpu_torch import testsystems  # noqa: F401
@@ -32,6 +35,12 @@ from pymbar_tpu_torch import timeseries  # noqa: F401
 from pymbar_tpu_torch import utils  # noqa: F401
 from pymbar_tpu_torch.mbar import MBAR
 from pymbar_tpu_torch.other_estimators import bar, bar_overlap, bar_zero, exp, exp_gauss
+
+try:
+    # the port ships in the JAX package's distribution, and reads its version
+    __version__ = _version("pymbar_tpu")
+except PackageNotFoundError:  # not installed as a distribution
+    __version__ = "0.1.0"
 
 
 def __getattr__(name):
@@ -57,4 +66,5 @@ __all__ = [
     "confidenceintervals",
     "utils",
     "checkpoint",
+    "__version__",
 ]

@@ -54,8 +54,8 @@ from pymbar_tpu_torch.mbar import (
 from pymbar_tpu_torch.ops.mbar_core import _col_chunks, _logden_direct
 from pymbar_tpu_torch.solvers import (
     DEFAULT_SOLVER_PROTOCOL,
+    _solve_mbar_for_all_states,
     batched_bootstrap_solve,
-    solve_mbar_for_all_states,
 )
 from pymbar_tpu_torch.solvers_large import bootstrap_polish_dd, dev_split_planes
 from pymbar_tpu_torch.utils import DataError, ParameterError, kn_to_n, logsumexp
@@ -452,7 +452,7 @@ class FES:
         ``u_kn[:, indices]`` warm from the base f_k: on a CUDA u_kn within
         the internal MBAR's batched gate all at once by
         :func:`pymbar_tpu_torch.solvers.batched_bootstrap_solve` (the JAX
-        package's TPU branch), else in turn by ``solve_mbar_for_all_states``
+        package's TPU branch), else in turn by ``_solve_mbar_for_all_states``
         under the default protocol (its off-TPU branch; ``n_fail`` is then
         0, as there)."""
         m = self.mbar
@@ -470,7 +470,7 @@ class FES:
         protocol = MBAR._resolve_protocol(None, DEFAULT_SOLVER_PROTOCOL, 10000)
         f_boots = np.zeros((len(all_indices), m.K))
         for b, indices in enumerate(all_indices):
-            f_boots[b], _results = solve_mbar_for_all_states(
+            f_boots[b], _results = _solve_mbar_for_all_states(
                 m.u_kn.index_select(1, torch.as_tensor(indices, device=m.u_kn.device)),
                 m.N_k, np.asarray(m.f_k), m.states_with_samples, protocol,
             )

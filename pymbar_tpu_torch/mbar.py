@@ -9,9 +9,8 @@ the free-energy differences, the weights (``Log_W_nk``, ``W_nk``,
 expectations (``compute_expectations``, ``compute_multiple_expectations``,
 ``compute_expectations_inner``), the free energies of perturbed states,
 the entropy and enthalpy and the covariance of sums; the solve on a 1-D
-device mesh (``mesh=``) and bootstrap replicates on one device
-(``n_bootstraps=``).  The mesh bootstrap is still to be ported; the
-constructor raises :class:`ParameterError` where it would need it.
+device mesh (``mesh=``) and bootstrap replicates (``n_bootstraps=``), on
+one device or, with every state sampled, on the mesh's sharded planes.
 
 ``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
 is, a numpy array goes to ``device`` (default: the CUDA card; without one,
@@ -39,7 +38,10 @@ from pymbar_tpu_torch.ops.mbar_core import (
 )
 from pymbar_tpu_torch.ops.logsumexp import logsumexp
 from pymbar_tpu_torch.other_estimators import bar
-from pymbar_tpu_torch.parallel.sharding import default_mesh, sharded_solve_mbar_for_all_states
+from pymbar_tpu_torch.parallel.sharding import (
+    _sharded_solve_mbar_for_all_states,
+    default_mesh,
+)
 from pymbar_tpu_torch.solvers import (
     BOOTSTRAP_SOLVER_PROTOCOL,
     DEFAULT_SOLVER_PROTOCOL,
@@ -450,13 +452,13 @@ class MBAR:
         if mesh is not None:
             if counts is not None:
                 (self.f_k, self.solver_results, f_boots, n_fail,
-                 boot_info) = sharded_solve_mbar_for_all_states(
+                 boot_info) = _sharded_solve_mbar_for_all_states(
                     self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh,
                     bootstrap_counts=counts, verbose=verbose,
                 )
                 self.bootstrap_at_floor = boot_info["at_floor"]
             else:
-                self.f_k, self.solver_results = sharded_solve_mbar_for_all_states(
+                self.f_k, self.solver_results = _sharded_solve_mbar_for_all_states(
                     self.u_kn, self.N_k, self.f_k, self.states_with_samples, mesh
                 )
         elif counts is not None:
@@ -473,7 +475,7 @@ class MBAR:
                     f"(gnorm={info['gnorm']:.3e})"
                 )
         else:
-            self.f_k, self.solver_results = mbar_solvers.solve_mbar_for_all_states(
+            self.f_k, self.solver_results = mbar_solvers._solve_mbar_for_all_states(
                 self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol
             )
 
@@ -565,7 +567,7 @@ class MBAR:
             f_k_init = self.f_k.copy()
             if bar_start:
                 f_k_init = self._initialize_with_bar(u_b, f_k_init=self.f_k)
-            f_k_boots[b], _ = mbar_solvers.solve_mbar_for_all_states(
+            f_k_boots[b], _ = mbar_solvers._solve_mbar_for_all_states(
                 u_b, self.N_k, f_k_init, self.states_with_samples, bootstrap_solver_protocol,
             )
             if verbose and b % maxfrac == 0:

@@ -11,9 +11,9 @@ from which the self-consistent update, the gradient and the objective
 follow, plus the Hessian and covariance aggregates in Gram form
 (W W^T, K x K), so no N x K weight matrix is formed.
 
-Every function takes ``u_kn`` as a tensor (the K-vectors N_k and f_k may
-also be numpy) and computes on the device ``u_kn`` lives on; only the
-K-vectors move there.  Eager PyTorch makes a full-size temporary
+Every function takes ``u_kn`` as a tensor or as numpy (a CPU float64
+tensor then, sharing its memory), the K-vectors N_k and f_k as either, and
+computes on the device ``u_kn`` lives on; only the K-vectors move there.  Eager PyTorch makes a full-size temporary
 for each elementwise op, so every K x N pass walks the sample axis in
 column chunks of at most ``_CHUNK_BYTES`` and updates its chunk
 temporaries in place.
@@ -64,8 +64,17 @@ def _col_chunks(u, extra_rows=0):
     return [(s, min(N, s + width)) for s in range(0, N, width)]
 
 
+def _as_tensor(u_kn):
+    """u_kn as a tensor: tensors as given, numpy as a CPU float64 tensor
+    sharing its memory where it can."""
+    if torch.is_tensor(u_kn):
+        return u_kn
+    return torch.from_numpy(np.ascontiguousarray(u_kn, dtype=np.float64))
+
+
 def _like(x, u):
-    """``x`` as a tensor of u's dtype on u's device (K-vectors only)."""
+    """``x`` (numpy or tensor) as a tensor of u's dtype on u's device
+    (K-vectors only); ``u`` is a tensor (:func:`_as_tensor`)."""
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                            dtype=u.dtype, device=u.device)
 
@@ -126,6 +135,7 @@ def log_denominator_n(u_kn, N_k, f_k):
     :func:`mbar_objective`, :func:`mbar_w_nk_gram` and :func:`mbar_hessian`
     take the same leading batch dimension.
     """
+    u_kn = _as_tensor(u_kn)
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     out = torch.empty(u_kn.shape[:-2] + u_kn.shape[-1:], dtype=u_kn.dtype, device=u_kn.device)
     for s, e in _col_chunks(u_kn):
@@ -155,6 +165,7 @@ def core_stats(u_kn, N_k, f_k):
     grad  = -N_k (1 - exp(f_k + lognum_k))          [Eq. C6]
     f_sci = -lognum_k                                [Eq. C3]
     """
+    u_kn = _as_tensor(u_kn)
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     logden = log_denominator_n(u_kn, N_k, f_k)
     lognum = _log_numerator_k(u_kn, logden)
@@ -168,6 +179,7 @@ def self_consistent_update(u_kn, N_k, f_k, states_with_samples=None):
 
     Only states in ``states_with_samples`` feed the denominator when given.
     """
+    u_kn = _as_tensor(u_kn)
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     if states_with_samples is not None:
         sel = torch.as_tensor(np.asarray(states_with_samples), device=u_kn.device)
@@ -184,6 +196,7 @@ def mbar_gradient(u_kn, N_k, f_k):
 
 def mbar_objective(u_kn, N_k, f_k):
     """MBAR objective (reference mbar_solvers.py:295-339)."""
+    u_kn = _as_tensor(u_kn)
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     return log_denominator_n(u_kn, N_k, f_k).sum(dim=-1) - f_k @ N_k
 
@@ -210,6 +223,7 @@ def mbar_w_nk_gram(u_kn, N_k, f_k):
     W[n, k] = exp(f_k - u_kn[k, n] - logden_n).  These are the only
     aggregates the Hessian (Eq. C9) needs.
     """
+    u_kn = _as_tensor(u_kn)
     K = u_kn.shape[-2]
     f_k = _like(f_k, u_kn)
     logden = log_denominator_n(u_kn, N_k, f_k)
@@ -224,6 +238,7 @@ def mbar_w_nk_gram(u_kn, N_k, f_k):
 
 def mbar_hessian(u_kn, N_k, f_k):
     """Hessian of the MBAR objective, Eq. C9 (reference mbar_solvers.py:395-436)."""
+    u_kn = _as_tensor(u_kn)
     N_k = _like(N_k, u_kn)
     gram, colsum = mbar_w_nk_gram(u_kn, N_k, f_k)
     H = gram * N_k[None, :] * N_k[:, None]
@@ -234,6 +249,7 @@ def mbar_hessian(u_kn, N_k, f_k):
 def mbar_W_nk(u_kn, N_k, f_k):
     """Normalized weights, Eq. 9, materialized in (N, K) layout (reference
     mbar_solvers.py:479-507).  Only for small validation paths."""
+    u_kn = _as_tensor(u_kn)
     f_k = _like(f_k, u_kn)
     return _weights(u_kn, f_k, log_denominator_n(u_kn, N_k, f_k)).T
 
@@ -243,6 +259,7 @@ def mbar_log_W_nk(u_kn, N_k, f_k):
     (N, K) tensor on u's device (reference mbar_solvers.py:439-476).  Each
     column chunk's (K, nc) block is written transposed into the output, so
     the only full-size allocation is the result itself."""
+    u_kn = _as_tensor(u_kn)
     K, N = u_kn.shape
     f_k = _like(f_k, u_kn)
     logden = log_denominator_n(u_kn, N_k, f_k)
@@ -358,6 +375,7 @@ def precondition_u_kn(u_kn, N_k, f_k):
     u_kn (B, K, N) preconditions every replicate of a batch around the same
     (K,) f_k.
     """
+    u_kn = _as_tensor(u_kn)
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     c_shift = torch.dot(N_k, f_k) / N_k.sum()
     out = torch.empty_like(u_kn)

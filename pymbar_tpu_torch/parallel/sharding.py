@@ -1,10 +1,10 @@
-"""Sample-axis (1-D mesh) sharding of the MBAR solve.
+"""Sharding of the MBAR solve over a 1-D (sample) or 2-D (state x sample) mesh.
 
-The counterpart of the 1-D part of :mod:`pymbar_tpu.parallel.sharding`.
-The MBAR math is map-reduce over the sample axis n: the per-sample
-log-denominators need no communication, and every per-state reduction
-(logsumexp over n, W W^T, sum_n W, the polish's weight sums) finishes with
-one combine of K-sized partials.  Only K-sized vectors cross devices.
+The counterpart of :mod:`pymbar_tpu.parallel.sharding`.  The MBAR math is
+map-reduce over the sample axis n: the per-sample log-denominators need no
+communication, and every per-state reduction (logsumexp over n, W W^T,
+sum_n W, the polish's weight sums) finishes with one combine of K-sized
+partials.  Only K-sized vectors cross devices.
 
 The JAX package's mesh is single-controller, and so is this one: one
 process drives every device.  A :class:`Mesh` is an ordered tuple of
@@ -21,7 +21,16 @@ the JAX package's shard_map needs one, a 1-D :class:`Mesh` carries its own.
 Bootstrap replicates ride the sharded planes as counts-weighted polishes
 (:func:`sharded_bootstrap_polish_dd`): each shard holds its columns' counts
 (0 on pad columns), so no resampled matrix exists and no sample crosses
-devices.  Not ported here: the 2-D k x n mesh (``mesh_2d``, ``sharded2d_*``).
+devices.
+
+The 2-D mesh (:class:`Mesh2D`, :func:`mesh_2d`) also shards the states, for
+state counts beyond one device: a sharded matrix is a kd x nd nested list
+of blocks, K and N padded to the mesh shape.  The per-sample reductions
+finish over the k-blocks of each n column, the per-state ones over the
+n-blocks of each k row.  Its dd solve (:func:`sharded2d_solve_mbar_dd`)
+runs the split pair K3 ``denom_sums_dd`` + K4 ``wsum_denom_dd`` on every
+block under a shift shared by the column (:func:`sharded2d_wsum_dd`);
+:func:`sharded2d_solve_mbar` is its plain float64 Anderson solve.
 """
 
 import dataclasses
@@ -41,9 +50,11 @@ from pymbar_tpu_torch.ops.mbar_core import (
     gram_f32_acc64,
     log_denominator_n,
 )
-from pymbar_tpu_torch.ops.wsum import wsum_dd
+from pymbar_tpu_torch.ops.wsum import _PAD_M, wsum_dd
+from pymbar_tpu_torch.ops.wsum_split import column_shift, denom_sums_dd, wsum_denom_dd
 from pymbar_tpu_torch.solvers import (
     _adaptive_metrics,
+    _anderson,
     _adaptive_stop,
     _newton_direction,
     host_adaptive_metrics,
@@ -64,23 +75,33 @@ from pymbar_tpu_torch.solvers_large import (
     dev_split_planes,
     polish_to_host,
 )
+from pymbar_tpu_torch.utils import ParameterError
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "Mesh",
+    "Mesh2D",
     "default_mesh",
+    "mesh_2d",
     "shard_u_kn",
     "sharded_log_denominator",
     "sharded_core_stats",
     "sharded_gram",
     "sharded_adaptive_step",
     "sharded_solve_mbar",
+    "shard_u_kn_2d",
+    "sharded2d_core_stats",
+    "sharded2d_gram",
+    "sharded2d_solve_mbar",
     "shard_dd_planes",
     "sharded_fused_lognum_dd",
     "sharded_wsum_dd",
     "sharded_bootstrap_polish_dd",
     "sharded_solve_mbar_dd",
+    "shard_dd_planes_2d",
+    "sharded2d_wsum_dd",
+    "sharded2d_solve_mbar_dd",
     "sharded_solve_mbar_for_all_states",
 ]
 
@@ -107,21 +128,33 @@ def default_mesh(n_devices=None, axis_name="n", device=None):
     card.
     """
     if device is None:
-        target_device()  # raises without a card
-        devices = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
-        devices = devices[:n_devices]
+        devices = _cards()[:n_devices]
     else:
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        devices = (dev,) * (1 if n_devices is None else n_devices)
+        devices = (_one_device(device),) * (1 if n_devices is None else n_devices)
     if not devices:
         raise ValueError(f"default_mesh: no devices (n_devices={n_devices})")
     return Mesh(devices, axis_name)
 
 
+def _cards():
+    """Every visible CUDA card; raises without one, naming ``device="cpu"``."""
+    target_device()
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
+def _one_device(device):
+    """``device`` as a torch.device, a bare "cuda" as the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _sync(mesh):
-    for dev in set(mesh.devices):
+    devices = mesh.devices
+    if isinstance(mesh, Mesh2D):
+        devices = [d for row in devices for d in row]
+    for dev in set(devices):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -156,22 +189,23 @@ def _split_columns(x, mesh, pad_value):
     return shards, n_pad
 
 
-def _psum(parts, mesh):
-    """Sum of per-shard partials on the first device, in mesh order."""
-    dev0 = mesh.devices[0]
-    acc = parts[0].to(dev0)
+def _preduce(parts, dev, op):
+    """Elementwise ``op`` (``torch.add``, ``torch.maximum``, ...) of
+    per-shard partials on ``dev``, folded in mesh order."""
+    acc = parts[0].to(dev)
     for p in parts[1:]:
-        acc = acc + p.to(dev0)
+        acc = op(acc, p.to(dev))
     return acc
 
 
-def _pmax(parts, mesh):
-    """Elementwise max of per-shard partials on the first device."""
-    dev0 = mesh.devices[0]
-    acc = parts[0].to(dev0)
-    for p in parts[1:]:
-        acc = torch.maximum(acc, p.to(dev0))
-    return acc
+def _psum(parts, dev):
+    """Sum of per-shard partials on ``dev``, in mesh order."""
+    return _preduce(parts, dev, torch.add)
+
+
+def _pmax(parts, dev):
+    """Elementwise max of per-shard partials on ``dev``."""
+    return _preduce(parts, dev, torch.maximum)
 
 
 def _vec(x, dtype, dev):
@@ -191,15 +225,19 @@ def shard_u_kn(u_kn, mesh):
 
 
 def _is_pad_col(u_local):
-    """Pad-column mask, a whole-column test through the column min.
+    """Pad-column mask, a whole-column test through the column min."""
+    return _pad_rule(u_local.amin(dim=0))
+
+
+def _pad_rule(col_min):
+    """Pad columns from their column min (over every state).
 
     float64 inputs (the user's u_kn, +inf pads): only a whole +inf column is
     padding, so a column huge in every state is kept and a NaN propagates.
     float32 hi planes (finite ~1e10 sentinels on preconditioned potentials,
     real columns at col_min ~ 0): col_min >= 5e9, or not finite.
     """
-    col_min = u_local.amin(dim=0)
-    if u_local.dtype == torch.float64:
+    if col_min.dtype == torch.float64:
         return col_min == torch.inf
     return ~torch.isfinite(col_min) | (col_min >= _PAD_THRESHOLD)
 
@@ -238,7 +276,7 @@ def sharded_core_stats(u_kn_sharded, N_k, f_k, mesh):
         lds.append(ld)
         obj_parts.append(ld.sum())
         max_parts.append(b_max)
-    b_max = _pmax(max_parts, mesh)
+    b_max = _pmax(max_parts, dev0)
     b_max = torch.where(torch.isfinite(b_max), b_max, 0.0)
     sum_parts = []
     for u, ld, dev in zip(u_kn_sharded, lds, mesh.devices):
@@ -247,8 +285,8 @@ def sharded_core_stats(u_kn_sharded, N_k, f_k, mesh):
         for c0, c1 in _col_chunks(u):
             s += (-ld[None, c0:c1] - u[:, c0:c1]).sub_(shift).exp_().sum(dim=1)
         sum_parts.append(s)
-    lognum = torch.log(_psum(sum_parts, mesh)) + b_max
-    obj = _psum(obj_parts, mesh) - torch.dot(N0, f0)
+    lognum = torch.log(_psum(sum_parts, dev0)) + b_max
+    obj = _psum(obj_parts, dev0) - torch.dot(N0, f0)
     grad = -N0 * (1.0 - torch.exp(f0 + lognum))
     return obj, grad, -lognum
 
@@ -274,7 +312,7 @@ def sharded_gram(u_kn_sharded, N_k, f_k, mesh):
             colsum += w.sum(dim=1)
         grams.append(gram)
         colsums.append(colsum)
-    return _psum(grams, mesh), _psum(colsums, mesh)
+    return _psum(grams, mesh.devices[0]), _psum(colsums, mesh.devices[0])
 
 
 def sharded_adaptive_step(u_kn_sharded, N_k, f_k, gamma, mesh, nr_method="lstsq"):
@@ -353,6 +391,292 @@ def sharded_solve_mbar(
 
 
 # ---------------------------------------------------------------------------
+# 2-D (k x n) mesh: states shard over 'k', samples over 'n'.  The
+# per-sample mixture reduction finishes over the k-blocks of one n column
+# (a max, then a sum), the per-state reductions over the n-blocks of one k
+# row.  A column's results are combined on the column's first device (row
+# 0), the per-state results on the mesh's first device.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A 2-D device mesh: ``devices[i][j]`` holds state block i of sample
+    block j (``k`` rows of ``n`` torch.devices, each possibly repeated).
+    The first axis shards states, the second samples."""
+
+    devices: tuple
+    axis_names: tuple = ("k", "n")
+
+    @property
+    def shape(self):
+        """{axis name: size}, as a JAX mesh's ``shape``."""
+        return dict(zip(self.axis_names, _grid(self)))
+
+
+def _grid(mesh):
+    """(kd, nd): the k and n sizes of a 2-D mesh."""
+    return len(mesh.devices), len(mesh.devices[0])
+
+
+def mesh_2d(k_devices, n_devices, axis_names=("k", "n"), device=None):
+    """2-D mesh: the first axis shards states, the second samples.
+
+    With no ``device``, the first ``k_devices * n_devices`` CUDA cards, row
+    by row; without enough of them it raises, naming ``device="cpu"``.  With
+    ``device``, every block on that one device: ``"cuda:0"`` for k x n
+    shards of one card, ``"cpu"`` for CPU shards.
+    """
+    if k_devices < 1 or n_devices < 1:
+        raise ValueError(f"mesh_2d: a {k_devices} x {n_devices} mesh has no devices")
+    n = k_devices * n_devices
+    if device is None:
+        devices = _cards()
+        if len(devices) < n:
+            raise ParameterError(
+                f"mesh_2d: a {k_devices} x {n_devices} mesh needs {n} CUDA cards, "
+                f'{len(devices)} visible: pass device="cuda:0" (or device="cpu") to put '
+                "every block on one device"
+            )
+    else:
+        devices = (_one_device(device),) * n
+    rows = tuple(tuple(devices[i * n_devices : (i + 1) * n_devices]) for i in range(k_devices))
+    return Mesh2D(rows, tuple(axis_names))
+
+
+def _blocks_2d(x, mesh, pad_value, dtype):
+    """The kd x nd blocks of a (K, N) matrix (numpy or tensor), K and N
+    padded to the mesh shape with ``pad_value``.
+
+    Block (i, j), a contiguous ``dtype`` tensor on ``mesh.devices[i][j]``,
+    holds padded rows [i kb, (i + 1) kb) and columns [j nb, (j + 1) nb).
+    Each block is copied (and cast) from its slice of x, so numpy input
+    crosses to a device block by block.  Returns (blocks, (k_pad, n_pad)).
+    """
+    kd, nd = _grid(mesh)
+    x = x if torch.is_tensor(x) else np.asarray(x)
+    K, N = x.shape
+    kb, nb = -(-K // kd), -(-N // nd)
+    blocks = []
+    for i, row in enumerate(mesh.devices):
+        r0, r1 = min(K, i * kb), min(K, (i + 1) * kb)
+        blocks.append([])
+        for j, dev in enumerate(row):
+            c0, c1 = min(N, j * nb), min(N, (j + 1) * nb)
+            part = x[r0:r1, c0:c1]
+            b = torch.full((kb, nb), pad_value, dtype=dtype, device=dev)
+            b[: r1 - r0, : c1 - c0].copy_(part if torch.is_tensor(part) else torch.tensor(part))
+            blocks[-1].append(b)
+    return blocks, (kd * kb - K, nd * nb - N)
+
+
+def _np64(x):
+    """A K-vector (numpy or tensor) as float64 numpy."""
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x, dtype=np.float64)
+
+
+def _pad_vectors(N_k, f_k, k_pad):
+    """N_k and f_k as float64 numpy with k_pad pad states (N_k = f_k = 0)."""
+    return np.pad(_np64(N_k), (0, k_pad)), np.pad(_np64(f_k), (0, k_pad))
+
+
+def _k_slices(x, mesh, kb, dtype):
+    """A padded K-vector's per-block slices: [i][j] holds rows
+    [i kb, (i + 1) kb) as ``dtype`` on ``mesh.devices[i][j]``."""
+    v = _vec(x, dtype, mesh.devices[0][0])
+    return [[v[i * kb : (i + 1) * kb].to(dev) for dev in row] for i, row in enumerate(mesh.devices)]
+
+
+def shard_u_kn_2d(u_kn, N_k, f_k, mesh):
+    """u_kn (numpy or tensor) as float64 blocks of a 2-D mesh, K and N
+    padded to the mesh shape.
+
+    Pad rows and pad columns get u = +inf (exp(-inf) adds exactly 0), pad
+    states N_k = 0 and f_k = 0.  Returns (blocks, N_k_padded, f_k_padded,
+    (k_pad, n_pad)): ``blocks[i][j]`` a contiguous float64 tensor on
+    ``mesh.devices[i][j]``, the padded K-vectors float64 numpy.
+    """
+    blocks, (k_pad, n_pad) = _blocks_2d(u_kn, mesh, float("inf"), torch.float64)
+    return (blocks, *_pad_vectors(N_k, f_k, k_pad), (k_pad, n_pad))
+
+
+def _finite_or_neg_inf(a):
+    """a with every non-finite entry set to -inf, in place (the JAX
+    package's ``where(isfinite(a), a, -inf)``)."""
+    return torch.nan_to_num_(a, nan=-torch.inf, posinf=-torch.inf, neginf=-torch.inf)
+
+
+def _column_logden(col, N_s, f_s, root):
+    """The log-denominators of one n column of blocks and its pad-column
+    mask, (N_local,) each on ``root``.
+
+    ``col``: the column's kd k-blocks; ``N_s``/``f_s``: their N_k and f_k
+    slices.  Per column chunk: each block's column max of f - u (non-finite
+    terms as -inf), a max over the k-blocks, then the sum of the blocks'
+    N_k-weighted exps in mesh order.  The pad test spans every k-block: a
+    column is padding when its min over all of them passes
+    :func:`_pad_rule`, and its log-denominator is then 0.
+    """
+    ld = torch.empty(col[0].shape[1], dtype=col[0].dtype, device=root)
+    pad = torch.empty(col[0].shape[1], dtype=torch.bool, device=root)
+    for s, e in _col_chunks(col[0]):
+        a = [_finite_or_neg_inf(f[:, None] - u[:, s:e]) for u, f in zip(col, f_s)]
+        m = _pmax([x.amax(dim=0) for x in a], root)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        parts = [x.sub_(m.to(x.device)).exp_().mul_(N[:, None]).sum(dim=0)
+                 for x, N in zip(a, N_s)]
+        del a
+        pad[s:e] = _pad_rule(_preduce([u[:, s:e].amin(dim=0) for u in col], root,
+                                       torch.minimum))
+        ld[s:e] = (torch.log(_psum(parts, root)) + m).masked_fill_(pad[s:e], 0.0)
+    return ld, pad
+
+
+def sharded2d_core_stats(u_sharded, N_k, f_k, mesh):
+    """(objective, gradient, f_sci) on a 2-D (k, n) mesh, on its first device.
+
+    ``u_sharded``: the blocks of :func:`shard_u_kn_2d` (or a hi plane's of
+    :func:`shard_dd_planes_2d`); N_k, f_k: the padded (K_pad,) vectors
+    (numpy or tensors).  Computes in the blocks' dtype.  Each n column's
+    log-denominators come from its k-blocks (:func:`_column_logden`); each
+    state's logsumexp over n takes the max of its n-blocks' maxima, then the
+    sum of their sums rescaled by it, both in mesh order.  Pad states
+    (N_k = 0, u = +inf) give f_sci = +inf and gradient 0.
+    """
+    kd, nd = _grid(mesh)
+    dev0 = mesh.devices[0][0]
+    dt = u_sharded[0][0].dtype
+    kb = u_sharded[0][0].shape[0]
+    N_s, f_s = _k_slices(N_k, mesh, kb, dt), _k_slices(f_k, mesh, kb, dt)
+    lds, obj_parts = [], []  # lds[j][i]: column j's log-denominators on block (i, j)
+    for j in range(nd):
+        ld, _ = _column_logden([row[j] for row in u_sharded], [N[j] for N in N_s],
+                               [f[j] for f in f_s], mesh.devices[0][j])
+        obj_parts.append(ld.sum())
+        lds.append([ld.to(row[j]) for row in mesh.devices])
+
+    def b_chunks(i, j):
+        u, ld = u_sharded[i][j], lds[j][i]
+        for s, e in _col_chunks(u):
+            yield _finite_or_neg_inf(-ld[None, s:e] - u[:, s:e])
+
+    lognum = []
+    for i in range(kd):
+        maxima = []
+        for j, dev in enumerate(mesh.devices[i]):
+            mx = torch.full((kb,), -torch.inf, dtype=dt, device=dev)
+            for b in b_chunks(i, j):
+                mx = torch.maximum(mx, b.amax(dim=1))
+            maxima.append(mx)
+        b_max = _pmax(maxima, dev0)
+        b_max = torch.where(torch.isfinite(b_max), b_max, 0.0)
+        sums = []
+        for j, dev in enumerate(mesh.devices[i]):
+            shift = b_max.to(dev)[:, None]
+            acc = torch.zeros(kb, dtype=dt, device=dev)
+            for b in b_chunks(i, j):
+                acc += b.sub_(shift).exp_().sum(dim=1)
+            sums.append(acc)
+        lognum.append(torch.log(_psum(sums, dev0)) + b_max)
+    lognum = torch.cat(lognum)
+    N0, f0 = _vec(N_k, dt, dev0), _vec(f_k, dt, dev0)
+    obj = _psum(obj_parts, dev0) - torch.dot(N0, f0)
+    grad = -N0 * (1.0 - torch.exp(f0 + lognum))
+    return obj, grad, -lognum
+
+
+def _chunked_pair_gram(a, b):
+    """a @ b^T of two (., N_local) float32 blocks: float32 products (TF32
+    refused, :func:`~pymbar_tpu_torch.ops.mbar_core._matmul`) over 8 column
+    chunks, accumulated in float64, as the JAX package chunks them."""
+    width = max(1, -(-a.shape[1] // 8))
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float64, device=a.device)
+    for s in range(0, a.shape[1], width):
+        out += _matmul(a[:, s : s + width], b[:, s : s + width].T)
+    return out
+
+
+def _chunked_w_gram(w):
+    """(W W^T, rowsum W) of one float32 weight block, in float64."""
+    return _chunked_pair_gram(w, w), w.sum(dim=1, dtype=torch.float64)
+
+
+def sharded2d_gram(u_sharded, N_k, f_k, mesh):
+    """(W^T W, colsum W) on a 2-D (k, n) mesh, the chord-factor pass: a ring
+    over k.
+
+    In each n column, every k-block forms its own W block from the column's
+    log-denominators (:func:`_column_logden`, pad columns weigh 0) and
+    contracts it against the W block of each later k-block of the column,
+    which visits it (formed on its own device, copied over, then dropped);
+    the tile of the pair fills both its place and its transpose's.  At most
+    two W blocks of a column exist at once, own and visiting, never the
+    column's whole K x N_local.  Tiles and column sums combine over n in
+    mesh order.  Products in float32 with float64 accumulation
+    (:func:`_chunked_pair_gram`); works on float32 hi planes with their
+    sentinels.  Returns the (K_pad, K_pad) Gram and the (K_pad,) colsum,
+    float64 on the mesh's first device.
+    """
+    kd, nd = _grid(mesh)
+    dev0 = mesh.devices[0][0]
+    dt = u_sharded[0][0].dtype
+    kb = u_sharded[0][0].shape[0]
+    N_s, f_s = _k_slices(N_k, mesh, kb, dt), _k_slices(f_k, mesh, kb, dt)
+    tiles, colsums = {}, [[] for _ in range(kd)]
+    for j in range(nd):
+        ld, pad = _column_logden([row[j] for row in u_sharded], [N[j] for N in N_s],
+                                 [f[j] for f in f_s], mesh.devices[0][j])
+
+        def w_block(i):
+            dev = mesh.devices[i][j]
+            w = (f_s[i][j][:, None] - u_sharded[i][j]).sub_(ld.to(dev)[None, :]).exp_()
+            return w.masked_fill_(pad.to(dev)[None, :], 0.0)
+
+        for i in range(kd):
+            own = w_block(i)
+            gram, colsum = _chunked_w_gram(own)
+            tiles.setdefault((i, i), []).append(gram)
+            colsums[i].append(colsum)
+            for i2 in range(i + 1, kd):
+                visiting = w_block(i2).to(own.device)
+                tiles.setdefault((i, i2), []).append(_chunked_pair_gram(own, visiting))
+                del visiting
+            del own
+    gram = torch.empty((kd * kb, kd * kb), dtype=torch.float64, device=dev0)
+    for (i, i2), parts in tiles.items():
+        tile = _psum(parts, dev0)
+        gram[i * kb : (i + 1) * kb, i2 * kb : (i2 + 1) * kb] = tile
+        gram[i2 * kb : (i2 + 1) * kb, i * kb : (i + 1) * kb] = tile.T
+    return gram, torch.cat([_psum(c, dev0) for c in colsums])
+
+
+def sharded2d_solve_mbar(u_kn, N_k, f_k=None, mesh=None, tol=1.0e-12, maxiter=2000, m_history=5):
+    """Anderson-accelerated MBAR solve on a 2-D (k, n) mesh, float64
+    throughout.
+
+    Hessian-free: each iteration is one self-consistent map (the f_sci of
+    :func:`sharded2d_core_stats` on the float64 blocks) mixed on the host
+    (:func:`_anderson`).  The JAX package runs it in the TPU's emulated f64;
+    true f64 takes its place here.  All states must have samples.  Returns
+    (f_k ndarray, info dict with success, iterations, max_delta, gnorm).
+    """
+    if mesh is None:
+        raise ValueError("sharded2d_solve_mbar requires an explicit 2-D mesh")
+    K = u_kn.shape[0]
+    f0 = np.zeros(K) if f_k is None else _np64(f_k)
+    u_sh, N_pad, f_pad, _ = shard_u_kn_2d(u_kn, N_k, f0 - f0[0], mesh)
+
+    def sc(fv):
+        f_sci = sharded2d_core_stats(u_sh, N_pad, fv, mesh)[2].cpu().numpy()
+        return f_sci - f_sci[0]
+
+    f, it, max_delta, success, _ = _anderson(sc, f_pad, maxiter, tol, m_history, K=K)
+    g = sharded2d_core_stats(u_sh, N_pad, f, mesh)[1][:K].cpu().numpy()
+    return f[:K], dict(success=success, iterations=it, max_delta=max_delta,
+                       gnorm=float(np.linalg.norm(g)))
+
+
+# ---------------------------------------------------------------------------
 # Double-word (two-float32) sharded solve
 # ---------------------------------------------------------------------------
 
@@ -371,7 +695,7 @@ def shard_dd_planes(u_hi, u_lo, mesh):
 def _dd_combine_partials(parts, mesh):
     """Per-shard (hi, lo) partial sums merged in f64 on the first device, in
     mesh order.  Returns the float64 sum."""
-    return _psum([dd_to_f64(h, l) for h, l in parts], mesh)
+    return _psum([dd_to_f64(h, l) for h, l in parts], mesh.devices[0])
 
 
 def sharded_fused_lognum_dd(u_hi_s, u_lo_s, g_hi, g_lo, m_k, mesh):
@@ -416,7 +740,7 @@ def _sharded_gram(u_hi_s, N_k32, f32_val, mesh, c=None):
         gram, colsum = gram_f32_acc64(u, N_k32.to(dev), f32_val.to(dev), cc)
         grams.append(gram)
         colsums.append(colsum)
-    return _psum(grams, mesh), _psum(colsums, mesh)
+    return _psum(grams, mesh.devices[0]), _psum(colsums, mesh.devices[0])
 
 
 def _sharded_polish_dd(u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, mesh, maxiter,
@@ -457,7 +781,7 @@ def _sharded_batch_S_fn(u_hi_s, u_lo_s, C_s, mesh, n_chunk, th_s=None):
             _batched_wsum_S(uh, ul, g0h.to(dev), g0l.to(dev), R.to(dev), C, n_chunk, exact, th=th)
             for uh, ul, C, th, dev in zip(u_hi_s, u_lo_s, C_s, ths, mesh.devices)
         ]
-        return _psum(parts, mesh)
+        return _psum(parts, mesh.devices[0])
 
     return S_fn
 
@@ -750,12 +1074,203 @@ def sharded_solve_mbar_dd(
     return f64.cpu().numpy(), info
 
 
-def sharded_solve_mbar_for_all_states(
+# ---------------------------------------------------------------------------
+# Double-word 2-D (k x n) mesh.  The weight sums split at the k-block
+# boundary: every block's denominator partials under one shift shared by
+# its n column (K3), summed exactly in f64 over the column's k-blocks, then
+# every block's weight sums (K4), summed over its k row's n-blocks.
+# ---------------------------------------------------------------------------
+
+
+def shard_dd_planes_2d(u_hi, u_lo, N_k, f_k, mesh):
+    """Double-word (hi, lo) planes (numpy or float32 tensors) as blocks of a
+    2-D mesh, with the finite sentinel padding.
+
+    Pad rows and pad columns get u_hi = +1e10 and u_lo = 0 (the dd kernels
+    drop them), pad states N_k = 0 and f_k = 0.  Returns (u_hi_s, u_lo_s,
+    N_k_padded, f_k_padded, (k_pad, n_pad)): kd x nd contiguous float32
+    blocks, each on its mesh device, and float64 numpy K-vectors.  Every
+    block is a copy, so the caller may drop planes that are already on the
+    card once the blocks exist (:func:`sharded2d_solve_mbar_dd` drops its
+    own references to them).
+    """
+    hi, pads = _blocks_2d(u_hi, mesh, _PAD_U, torch.float32)
+    lo, _ = _blocks_2d(u_lo, mesh, 0.0, torch.float32)
+    return (hi, lo, *_pad_vectors(N_k, f_k, pads[0]), pads)
+
+
+def sharded2d_wsum_dd(u_hi_s, u_lo_s, g_hi, g_lo, mesh):
+    """S_k = sum_n N_k W_nk on a 2-D (k, n) mesh in dd precision.
+
+    For each n column of blocks: the shift m_n, the max over its k-blocks of
+    :func:`~pymbar_tpu_torch.ops.wsum_split.column_shift` (a float32 max,
+    exact in any order); K3 ``denom_sums_dd`` on every block under that
+    shared m; the kd (N_local,) partials summed in f64 in k order, and pad
+    columns (m_n < -1e8) set to d = 0 after the sum; then K4
+    ``wsum_denom_dd`` on every block.  Each k row's nd (K_local,) partials
+    are summed in f64 in n order and the rows concatenated.  Every block's
+    kernels are launched before anything waits.  g_hi/g_lo: the
+    (K_padded,) float32 dd planes of f + ln N (0 on pad states, whose
+    sentinel rows add exactly 0).  Returns (S_hi, S_lo), (K_padded,)
+    float32 on the mesh's first device.
+    """
+    kd, nd = _grid(mesh)
+    kb = u_hi_s[0][0].shape[0]
+    gh_s, gl_s = _k_slices(g_hi, mesh, kb, torch.float32), _k_slices(g_lo, mesh, kb, torch.float32)
+    rows = [[] for _ in range(kd)]
+    for j in range(nd):
+        root = mesh.devices[0][j]
+        col = [(u_hi_s[i][j], u_lo_s[i][j], gh_s[i][j], gl_s[i][j], mesh.devices[i][j])
+               for i in range(kd)]
+        m = _pmax([column_shift(uh, gh) for uh, _, gh, _, _ in col], root)
+        d = _psum([dd_to_f64(*denom_sums_dd(uh, ul, gh, gl, m.to(dev)))
+                   for uh, ul, gh, gl, dev in col], root)
+        d_hi, d_lo = dd_from_f64(d.masked_fill_(m < _PAD_M, 0.0))
+        for row, (uh, ul, gh, gl, dev) in zip(rows, col):
+            row.append(dd_to_f64(*wsum_denom_dd(uh, ul, gh, gl, m.to(dev), d_hi.to(dev),
+                                                d_lo.to(dev))))
+    return dd_from_f64(torch.cat([_psum(row, mesh.devices[0][0]) for row in rows]))
+
+
+def _sharded2d_polish_dd(u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, mesh, maxiter):
+    """The 2-D-mesh dd chord-Newton polish: the single-device polish loop
+    (:func:`pymbar_tpu_torch.solvers_large._polish_loop`) with one
+    :func:`sharded2d_wsum_dd` per iteration.  Pad states carry N_k = 0,
+    S_k = 0 and an identity block of ``hinv``, so their gradient and step
+    are exactly 0."""
+
+    def wsum(uh, ul, gh, gl):
+        return sharded2d_wsum_dd(uh, ul, gh, gl, mesh)
+
+    return _polish_loop(wsum, u_hi_s, u_lo_s, N_k64, f0, hinv, logN, tol, gamma, maxiter)
+
+
+def _strided_blocks_2d(blocks, mesh, stride):
+    """The blocks of the padded plane's every-``stride``-th global column
+    (``u[:, ::stride]``), re-split over n and padded with the sentinel:
+    each k row's selected columns are gathered on the row's first device,
+    then split as :func:`shard_dd_planes` splits a plane."""
+    out = []
+    for row, devs in zip(blocks, mesh.devices):
+        sel = torch.cat([c.to(devs[0]) for c in _strided_shards(row, mesh, stride)], dim=1)
+        out.append(_split_columns(sel, Mesh(devs), _PAD_U)[0])
+    return out
+
+
+def sharded2d_solve_mbar_dd(
+    u_hi,
+    u_lo,
+    N_k,
+    f_k=None,
+    mesh=None,
+    tol=1.0e-12,
+    f32_tol=1.0e-4,
+    f32_maxiter=200,
+    polish_maxiter=60,
+    m_history=5,
+):
+    """Double-word MBAR solve on a 2-D (k, n) mesh, with the 1-D dd solve's
+    ~1e-12 floor.
+
+    The JAX package's phases, minus its TPU knob ``fast_exp``: phase 1 runs
+    float32 Anderson (:func:`_anderson`, 'mixed' metric) on the
+    self-consistent map of :func:`sharded2d_core_stats` over the hi blocks,
+    on the plane's global every-``stride2``-th column subsample (stride2 =
+    N // (32 K), clipped to [1, 64]).  The subsample's weights keep the
+    full-N normalization (logden is column-local), so its map is the full
+    map plus a uniform ln(stride2) that cancels on re-pinning, and its Gram
+    and column sums scale by ratio = N / n_sub.  Phase 2 is the chord-Newton
+    polish of the 1-D solves (:func:`_sharded2d_polish_dd`) with its factor
+    from :func:`sharded2d_gram` on that subsample (an identity block for pad
+    states); if the factor fails to contract, the Hessian-free dd Anderson
+    iteration over :func:`sharded2d_wsum_dd` (floor stop 3e-13) takes over,
+    and one more weight-sum pass gives the gradient.  The caller supplies
+    preconditioned (hi, lo) planes (numpy or float32 tensors); they are
+    copied block by block (:func:`shard_dd_planes_2d`), and the solve drops
+    its references to them once the blocks exist, so a caller that passes
+    its only references frees planes that sit on the card.  All states must
+    have samples.  Returns (f_k float64 ndarray, info dict).
+    """
+    if mesh is None:
+        raise ValueError("sharded2d_solve_mbar_dd requires an explicit 2-D mesh")
+    dev0 = mesh.devices[0][0]
+    K, N_cols = u_hi.shape
+    f0 = np.zeros(K) if f_k is None else _np64(f_k)
+    u_hi_s, u_lo_s, N_pad, f_pad, _ = shard_dd_planes_2d(u_hi, u_lo, N_k, f0 - f0[0], mesh)
+    del u_hi, u_lo
+    N_pad32 = N_pad.astype(np.float32)
+    stride2 = int(np.clip(N_cols // max(32 * K, 1), 1, 64))
+    sub = u_hi_s if stride2 == 1 else _strided_blocks_2d(u_hi_s, mesh, stride2)
+    ratio = N_cols / float(-(-N_cols // stride2))
+
+    # ---- phase 1: float32 Anderson on the (subsampled) hi blocks
+    _sync(mesh)
+    t_phase1 = time.time()
+
+    def sc32(fv):
+        f_sci = sharded2d_core_stats(sub, N_pad32, fv.astype(np.float32), mesh)[2]
+        f_sci = f_sci.cpu().numpy().astype(np.float64)
+        return f_sci - f_sci[0]
+
+    f, it32, _, _, _ = _anderson(sc32, f_pad, f32_maxiter, f32_tol, m_history, K=K,
+                                delta_mode="mixed")
+    t_phase1 = time.time() - t_phase1
+
+    # ---- phase 2: the dd chord-Newton polish, dd Anderson as its fallback
+    t_phase2 = time.time()
+    logN = np.where(N_pad > 0, np.log(np.where(N_pad > 0, N_pad, 1.0)), 0.0)
+    gram, colsum = sharded2d_gram(sub, N_pad32, f.astype(np.float32), mesh)
+    del sub
+    N_k64 = torch.as_tensor(N_pad, device=dev0)
+    hinv = torch.eye(len(N_pad) - 1, dtype=torch.float64, device=dev0)
+    hinv[: K - 1, : K - 1] = _newton_factor(gram[:K, :K] * ratio, colsum[:K] * ratio, N_k64[:K])
+    del gram, colsum
+    f64, it_dd, g64, deltas, converged, at_floor = polish_to_host(_sharded2d_polish_dd(
+        u_hi_s, u_lo_s, N_k64, torch.as_tensor(f, device=dev0), hinv,
+        torch.as_tensor(logN, device=dev0), tol, 1.0, mesh, polish_maxiter,
+    ))
+    max_delta = deltas[-1] if deltas else np.inf
+    f = f64.cpu().numpy()
+    g = g64[:K].cpu().numpy()
+
+    if not converged:
+        def wsum_at(fv):
+            gh, gl = dd_from_f64(torch.as_tensor(fv + logN, device=dev0))
+            return dd_to_f64(*sharded2d_wsum_dd(u_hi_s, u_lo_s, gh, gl, mesh)).cpu().numpy()
+
+        def sc_dd(fv):
+            S = wsum_at(fv)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                f_sci = fv + logN - np.log(np.where(S > 0, S, 1.0))
+            f_sci[N_pad == 0] = 0.0
+            return f_sci - f_sci[0]
+
+        f, it2, max_delta, converged, at_floor = _anderson(
+            sc_dd, f, polish_maxiter, tol, m_history, K=K, delta_mode="mixed",
+            floor_stop=3.0e-13)
+        it_dd += it2
+        g = (wsum_at(f) - N_pad)[:K]  # the gradient certificate
+    t_phase2 = time.time() - t_phase2
+
+    return f[:K], dict(
+        converged=converged,
+        at_noise_floor=at_floor,
+        f32_iterations=int(it32),
+        polish_iterations=int(it_dd),
+        max_delta=max_delta,
+        deltas=deltas,
+        gnorm=float(np.linalg.norm(g)),
+        phase1_s=t_phase1,
+        phase2_s=t_phase2,
+    )
+
+
+def _sharded_solve_mbar_for_all_states(
     u_kn, N_k, f_k, states_with_samples, mesh=None, tol=1.0e-12, bootstrap_counts=None,
     verbose=False,
 ):
-    """The sharded counterpart of ``solve_mbar_for_all_states``, the MBAR
-    class's mesh front door.
+    """:func:`sharded_solve_mbar_for_all_states` that also returns the
+    solve's result dicts: the MBAR class's mesh front door.
 
     Solves the sampled states by :func:`sharded_solve_mbar_dd` on the dd
     split of a private copy of their rows (min-shifted in place, and freed
@@ -763,15 +1278,14 @@ def sharded_solve_mbar_for_all_states(
     over all K states on the +inf-padded float64 u_kn, and re-pins f_0 = 0.
     ``u_kn``: float64 tensor (split on its own device, the shards copied to
     the mesh) or numpy (split on the host).  Returns (f_k ndarray, list of
-    the solve's result dict), as the port's single-device front door; the
-    JAX package returns f_k alone.
+    the solve's result dict), as the single-device
+    :func:`pymbar_tpu_torch.solvers._solve_mbar_for_all_states`.
 
     With ``bootstrap_counts`` (a (B, N) resample-multiplicity matrix; every
     state must have samples, else ValueError) the B replicates are also
     solved on the same sharded planes from the base solution and its chord
     factor (:func:`sharded_bootstrap_polish_dd`), and the return is (f_k,
-    results, f_boots (B, K), n_fail, info); the JAX package returns (f_k,
-    f_boots, n_fail, info).
+    results, f_boots (B, K), n_fail, info).
     """
     if mesh is None:
         mesh = default_mesh()
@@ -826,3 +1340,21 @@ def sharded_solve_mbar_for_all_states(
         _, _, f_sci = sharded_core_stats(u_all, N_k, f_k, mesh)
         f_k = f_sci.cpu().numpy()
     return f_k - f_k[0], results
+
+
+def sharded_solve_mbar_for_all_states(
+    u_kn, N_k, f_k, states_with_samples, mesh=None, tol=1.0e-12, bootstrap_counts=None,
+    verbose=False,
+):
+    """The sharded counterpart of ``solve_mbar_for_all_states``, as the JAX
+    package's: the states with samples solved on the mesh, the empty ones
+    filled by one self-consistent update, f_0 = 0 (see
+    :func:`_sharded_solve_mbar_for_all_states`).  Returns f_k, a (K,)
+    float64 ndarray; with ``bootstrap_counts``, (f_k, f_boots (B, K),
+    n_fail, info).
+    """
+    out = _sharded_solve_mbar_for_all_states(
+        u_kn, N_k, f_k, states_with_samples, mesh=mesh, tol=tol,
+        bootstrap_counts=bootstrap_counts, verbose=verbose,
+    )
+    return out[0] if bootstrap_counts is None else (out[0], *out[2:])

@@ -34,6 +34,7 @@ import torch
 
 from pymbar_tpu_torch.ops.mbar_core import (
     _CHUNK_BYTES,
+    _as_tensor,
     core_stats,
     mbar_gradient,
     mbar_hessian,
@@ -113,13 +114,6 @@ def target_device(device=None):
             'no CUDA device is available: pass device="cpu" to run on the CPU'
         )
     return torch.device("cuda")
-
-
-def _as_tensor(u_kn):
-    """u_kn as a tensor: tensors as given, numpy as a CPU tensor sharing memory."""
-    if torch.is_tensor(u_kn):
-        return u_kn
-    return torch.from_numpy(np.ascontiguousarray(u_kn, dtype=np.float64))
 
 
 # -----------------------------------------------------------------------------
@@ -311,49 +305,32 @@ def adaptive(u_kn, N_k, f_k, tol=1.0e-8, options=None):
     return dict(success=success, message=message, x=f_out)
 
 
-def anderson(u_kn, N_k, f_k, tol=1.0e-12, options=None):
-    """Anderson-accelerated self-consistent iteration (Hessian-free).
+def _anderson(sc, f, maxiter, tol, m_history, K=None, beta=1.0, delta_mode="relative",
+              floor_stop=None, verbose=False):
+    """Anderson-mixed iteration of the fixed-point map ``sc`` on the host, in
+    float64 (the loop of :func:`anderson` and of the 2-D mesh's solves).
 
-    The counterpart of :func:`pymbar_tpu.solvers.anderson` (no reference
-    analog): the Eq. C3 fixed point with Anderson mixing over an ``m``-deep
-    residual history.  Each iteration is one :func:`core_stats` pass pair
-    on u_kn's device and O(K m^2) host algebra (numpy ``lstsq`` on the
-    residual differences); no K x K Hessian.
-
-    Options: ``maxiter`` (default 1000), ``m`` (history depth, default 5),
-    ``beta`` (mixing, default 1.0), ``verbose``.
-    Returns dict(success, message, x) like :func:`adaptive`, x a tensor.
+    Mixes the last ``m_history`` iterates by least squares on their residual
+    differences (``beta`` < 1 damps the mix towards the previous iterates),
+    re-pins f_0 = 0 and keeps the pad states (index >= ``K``, default none)
+    at 0.  Stops when the change in f (``delta_mode`` of
+    :func:`host_adaptive_metrics`) falls below ``tol``; with ``floor_stop``,
+    also at the noise floor: the change, or its extrapolated next value,
+    below it.  Returns (f, iterations, max_delta, converged, at_floor).
     """
-    options = dict(options or {})
-    maxiter = int(options.get("maxiter", 1000))
-    m = int(options.get("m", 5))
-    beta = float(options.get("beta", 1.0))
-    verbose = options.get("verbose", False)
-
-    u_kn = _as_tensor(u_kn)
-    N_k = torch.as_tensor(N_k, dtype=u_kn.dtype, device=u_kn.device)
-    f = np.asarray(f_k.cpu() if torch.is_tensor(f_k) else f_k, dtype=np.float64)
-    f = f - f[0]
-
-    def sc(fv):
-        _, _, f_sci = core_stats(u_kn, N_k, torch.as_tensor(fv, dtype=u_kn.dtype,
-                                                            device=u_kn.device))
-        return (f_sci - f_sci[0]).cpu().numpy().astype(np.float64)
-
-    hist_x = []
-    hist_r = []
-    success = False
-    max_delta = np.inf
+    K = len(f) if K is None else K
+    hist_x, hist_r = [], []
+    it = 0
+    max_delta = prev_delta = np.inf
     for it in range(1, maxiter + 1):
         gx = sc(f)
-        r = gx - f
-
+        gx[K:] = 0.0
         hist_x.append(gx)
-        hist_r.append(r)
-        if len(hist_x) > m:
+        hist_r.append(gx - f)
+        if len(hist_x) > m_history:
             hist_x.pop(0)
             hist_r.pop(0)
-
+        f_new = gx
         if len(hist_r) > 1:
             # alpha minimizing || R alpha ||, sum(alpha) = 1, as an
             # unconstrained lstsq on residual differences
@@ -361,27 +338,58 @@ def anderson(u_kn, N_k, f_k, tol=1.0e-12, options=None):
             dR = R[:, :-1] - R[:, -1:]
             try:
                 gamma_c, *_ = np.linalg.lstsq(dR, R[:, -1], rcond=None)
-                alpha = np.concatenate([-gamma_c, [1.0 + np.sum(gamma_c)]])
+                alpha = np.concatenate([-gamma_c, [1.0 + gamma_c.sum()]])
+                f_new = np.stack(hist_x, axis=1) @ alpha
+                if beta != 1.0:
+                    x_prev = np.stack([x - r for x, r in zip(hist_x, hist_r)], axis=1)
+                    f_new = (1 - beta) * (x_prev @ alpha) + beta * f_new
             except np.linalg.LinAlgError:
-                alpha = np.zeros(R.shape[1])
-                alpha[-1] = 1.0
-            X = np.stack(hist_x, axis=1)
-            f_new = X @ alpha
-            if beta != 1.0:
-                x_prev = np.stack([x - r for x, r in zip(hist_x, hist_r)], axis=1)
-                f_new = (1 - beta) * (x_prev @ alpha) + beta * f_new
-        else:
-            f_new = gx
-
+                pass
         f_new = f_new - f_new[0]
-        max_delta, _ = host_adaptive_metrics(f_new, f, f_new, f_new, tol)
+        f_new[K:] = 0.0
+        max_delta, _ = host_adaptive_metrics(f_new[:K], f[:K], f_new[:K], f_new[:K], tol,
+                                             delta_mode=delta_mode)
         f = f_new
         if verbose:
             logger.info(f"anderson iteration {it}: max_delta = {max_delta:.3e}")
         if max_delta < tol:
-            success = True
-            break
+            return f, it, max_delta, True, False
+        if floor_stop is not None:
+            predicted = max_delta * max_delta / prev_delta if np.isfinite(prev_delta) else np.inf
+            if max_delta < floor_stop or predicted < floor_stop:
+                return f, it, max_delta, True, True
+        prev_delta = max_delta
+    return f, it, max_delta, False, False
 
+
+def anderson(u_kn, N_k, f_k, tol=1.0e-12, options=None):
+    """Anderson-accelerated self-consistent iteration (Hessian-free).
+
+    The counterpart of :func:`pymbar_tpu.solvers.anderson` (no reference
+    analog): the Eq. C3 fixed point with Anderson mixing over an ``m``-deep
+    residual history (:func:`_anderson`).  Each iteration is one
+    :func:`core_stats` pass pair on u_kn's device and O(K m^2) host algebra
+    (numpy ``lstsq`` on the residual differences); no K x K Hessian.
+
+    Options: ``maxiter`` (default 1000), ``m`` (history depth, default 5),
+    ``beta`` (mixing, default 1.0), ``verbose``.
+    Returns dict(success, message, x) like :func:`adaptive`, x a tensor.
+    """
+    options = dict(options or {})
+    maxiter = int(options.get("maxiter", 1000))
+
+    u_kn = _as_tensor(u_kn)
+    N_k = torch.as_tensor(N_k, dtype=u_kn.dtype, device=u_kn.device)
+    f = np.asarray(f_k.cpu() if torch.is_tensor(f_k) else f_k, dtype=np.float64)
+
+    def sc(fv):
+        _, _, f_sci = core_stats(u_kn, N_k, torch.as_tensor(fv, dtype=u_kn.dtype,
+                                                            device=u_kn.device))
+        return (f_sci - f_sci[0]).cpu().numpy().astype(np.float64)
+
+    f, _, max_delta, success, _ = _anderson(
+        sc, f - f[0], maxiter, tol, int(options.get("m", 5)),
+        beta=float(options.get("beta", 1.0)), verbose=options.get("verbose", False))
     message = (
         "Convergence achieved by change in f with respect to previous guess."
         if success
@@ -766,9 +774,16 @@ def solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protoc
 
     Mirrors reference mbar_solvers.py:977-1017.  A tensor u_kn is used on
     its device as given (the sampled-state selection copies only when some
-    state is empty).  Returns (f_k ndarray, list of per-stage result dicts);
-    the JAX package returns f_k alone.
+    state is empty).  Returns f_k, a float64 ndarray, as the JAX package
+    does; :func:`_solve_mbar_for_all_states` also returns the per-stage
+    result dicts.
     """
+    return _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protocol)[0]
+
+
+def _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protocol):
+    """:func:`solve_mbar_for_all_states` returning (f_k ndarray, list of
+    per-stage result dicts): the MBAR class's front door."""
     u_kn = _as_tensor(u_kn)
     N_k = np.asarray(N_k)
     f_k = np.array(f_k, dtype=np.float64, copy=True)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
-from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES, _matmul, gram_f32_acc64
+from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES, _as_tensor, _matmul, gram_f32_acc64
 from pymbar_tpu_torch.ops.wsum import wsum_dd
 from pymbar_tpu_torch.solvers import _adaptive_while, target_device
 
@@ -43,6 +43,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "solve_mbar_dd",
+    "split_u_kn_streamed",
     "host_split_planes",
     "dev_split_planes",
     "polish_to_host",
@@ -67,6 +68,14 @@ def _coarse_stride(N_k_host, n_elems):
         return 0
     stride = min(16, int(N_k_host.min()) // 16)
     return stride if stride >= 2 else 0
+
+
+def split_u_kn_streamed(u64):
+    """Split a float64 u_kn into (hi, lo) float32 planes, with no shift:
+    hi = f32(u), lo = f32(u - f64(hi)).  A tensor keeps its device, numpy
+    gives CPU tensors.  The JAX package donates its input to the split; the
+    port leaves it as it is."""
+    return dd_from_f64(_as_tensor(u64).to(torch.float64))
 
 
 def dev_split_planes(u64):

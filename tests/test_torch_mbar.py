@@ -246,7 +246,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "pymbar_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names_walked = {str(p.relative_to(REPO)) for p in files}
     for module in ("checkpoint", "other_estimators", "timeseries", "confidenceintervals",
-                   "utils_for_testing", "config", "mbar_solvers",
+                   "utils_for_testing", "config", "mbar_solvers", "parallel/sharding",
                    "testsystems/exponential_distributions", "testsystems/gaussian_work",
                    "testsystems/timeseries"):
         assert f"pymbar_tpu_torch/{module}.py" in names_walked
@@ -265,3 +265,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path}: imports {name}"
+
+
+def test_version_is_the_jax_package_reading():
+    """``__version__`` is exported and read as the JAX package reads its
+    own (both ship in one distribution)."""
+    assert "__version__" in pymbar_tpu_torch.__all__
+    assert pymbar_tpu_torch.__version__ == pymbar_tpu.__version__
+
+
+def test_docstrings_claim_nothing_unported():
+    """Every public module of the port is ported whole: no module docstring
+    may still say that a part is to be ported (the mesh bootstrap, the 2-D
+    mesh), nor that the constructor raises for one."""
+    import importlib
+
+    for path in sorted((REPO / "pymbar_tpu_torch").rglob("*.py")):
+        name = ".".join(path.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        doc = (importlib.import_module(name).__doc__ or "").lower()
+        assert "to be ported" not in doc and "not ported" not in doc, name

@@ -346,6 +346,23 @@ def test_bootstrap_counts_with_an_empty_state_raise(with_empty_state):
                                              _mesh(2), bootstrap_counts=counts)
 
 
+def test_sharded_solve_mbar_for_all_states_returns_like_jax(problem):
+    """The public front door returns what the JAX package's does: f_k
+    alone, and (f_k, f_boots, n_fail, info) with bootstrap counts; the
+    private one MBAR calls also returns the solve's result dicts."""
+    u_kn, N_k, _, _ = problem
+    sws = np.arange(len(N_k))
+    f = ts.sharded_solve_mbar_for_all_states(u_kn, N_k, np.zeros(len(N_k)), sws, _mesh(2))
+    f_priv, results = ts._sharded_solve_mbar_for_all_states(u_kn, N_k, np.zeros(len(N_k)), sws,
+                                                            _mesh(2))
+    assert isinstance(f, np.ndarray) and np.array_equal(f, f_priv) and results[0]["success"]
+    counts = np.ones((2, u_kn.shape[1]), np.uint16)
+    out = ts.sharded_solve_mbar_for_all_states(u_kn, N_k, np.zeros(len(N_k)), sws, _mesh(2),
+                                               bootstrap_counts=counts)
+    assert len(out) == 4 and np.array_equal(out[0], f) and out[1].shape == (2, len(N_k))
+    assert out[2] == 0 and "at_floor" in out[3]
+
+
 def test_default_mesh(monkeypatch):
     mesh = ts.default_mesh(8, device="cpu")
     assert mesh.devices == (torch.device("cpu"),) * 8 and mesh.axis_name == "n"

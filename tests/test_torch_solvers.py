@@ -79,10 +79,13 @@ def test_solve_mbar_for_all_states_with_empty_state():
     N_k = np.array([300, 300, 0, 300, 300])
     sws = np.where(N_k > 0)[0]
     prot = ({"method": "adaptive", "options": {}},)
-    f, results = ts.solve_mbar_for_all_states(u, N_k, np.zeros(5), sws, prot)
+    f, results = ts._solve_mbar_for_all_states(u, N_k, np.zeros(5), sws, prot)
     f_ref = js.solve_mbar_for_all_states(u, N_k, np.zeros(5), sws, prot)
     assert results[0]["success"]
     assert np.max(np.abs(f - f_ref)) <= 1e-10
+    # the public name returns f_k alone, as the JAX package's
+    f_pub = ts.solve_mbar_for_all_states(u, N_k, np.zeros(5), sws, prot)
+    assert isinstance(f_pub, np.ndarray) and np.array_equal(f_pub, f)
 
 
 @pytest.mark.parametrize("method,tol", [("anderson", 1e-10), ("BFGS", 1e-8)])
