@@ -209,9 +209,29 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    Anderson, no kernel) on a (2, 2) mesh at K = 1024 oscillators x 96
    samples (805 MB): converged, f within 1e-9 of the single-card MBAR.
 
-Then the card, the kernels line (K1's launches: phase 2's MBAR and phase
-9 (a)'s; the shift's, K3's and K4's: phase 3's MBAR and phase 10 (b)'s
-solve) and {"ok": true, "device": {...}} close the output.  Without a CUDA card, or without the repository beside this file,
+11. A host-resident u_kn: MBAR(cpu_tensor, N_k, device="cuda") keeps
+   u_kn in host memory and streams its column chunks to the card through
+   pinned staging; each call on its own line with its wall, its peak device
+   memory and its K1 launches.  (a) The flagship remade from phase 2's seed,
+   moved to host memory and freed on the card: MBAR and the free energies
+   against phase 2's resident route (f_k within 1e-12, expected bit for
+   bit; Delta_f within 1e-12, dDelta_f within 1e-10 relative; the same K1
+   launches; the peak at most 0.6 x phase 2's), compute_expectations(x_n)
+   within 1e-10 of phase 7's (sigma relative); the pinned upload's GB/s
+   (one 512 MB copy) and a streamed pass's (bytes over its wall) with its
+   share of each wall.  (c) The 1-D mesh from the host (phase 4's mesh)
+   against phase 4's f_k (5e-10).  (d) The B = 64 counts route from the
+   host: f_k_boots within 1e-12 of phase 5's.  (b) 1024 oscillators x
+   5,856 samples each (N = 5,996,544, 49.1 GB of f64), made on the card
+   row block by row block into host memory: the resident route's need (u_kn
+   and its planes, 98.3 GB) printed against the card's memory; the dd route
+   through K1 from the host, converged (gradient norm / N <= 1e-11 by the
+   solver and by a streamed f64 evaluation), |z| < 6, the peak below the
+   card's memory.
+
+Then the card, the kernels line (K1's launches: phase 2's MBAR, phase 9
+(a)'s and phase 11's runs; the shift's, K3's and K4's: phase 3's MBAR and
+phase 10 (b)'s solve) and {"ok": true, "device": {...}} close the output.  Without a CUDA card, or without the repository beside this file,
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
@@ -530,6 +550,7 @@ def phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, 
     ]
     if bad:
         fail(f"phase 7 failed: {bad} ({checks})")
+    return ex1
 
 
 def phase8(torch, np, u_flag, N_k_flag, x_flag):
@@ -1272,6 +1293,184 @@ def phase10(torch, np, slice_state, f_slice, route_ms_1b):
     emit("10_mesh_2d", s=time.perf_counter() - t_phase)
     return split, block_err
 
+def phase11(torch, np, flag_seed, flag, mesh4, single5, ex7):
+    """A host-resident u_kn: MBAR(cpu_tensor, N_k, device="cuda") keeps
+    u_kn in host memory and streams its column chunks to the card.  (a)
+    The flagship remade from phase 2's seed and moved to host memory, held
+    to phase 2's resident route (``flag``) and phase 7's expectations
+    (``ex7``); the link's rates beside it.  (c) The 1-D mesh from the host
+    against phase 4's f_k (``mesh4``); (d) the B = 64 counts route against
+    phase 5's replicates (``single5``).  (b) The 6x problem, 1024 x 5,856
+    per state (49.1 GB of f64), which the resident route cannot hold on
+    one card.  Returns K1's launches over the phase's runs, each counted
+    from zero."""
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.ops import wsum, wsum_split
+    from pymbar_tpu_torch.ops.mbar_core import mbar_gradient, stream_columns
+    from pymbar_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    split_names = ("SHIFT_LAUNCHES", "DENOM_SUMS_LAUNCHES", "WSUM_DENOM_LAUNCHES")
+    t_phase = time.perf_counter()
+    k1_total = 0
+
+    def run(fn):
+        """(fn's result, wall, peak device bytes, K1 launches, split-route
+        launches), every count set to 0 just before fn."""
+        nonlocal k1_total
+        sync_all(torch)
+        torch.cuda.reset_peak_memory_stats()
+        wsum.WSUM_LAUNCHES = 0
+        for n in split_names:
+            setattr(wsum_split, n, 0)
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(torch)
+        k1 = wsum.WSUM_LAUNCHES
+        k1_total += k1
+        return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(), k1,
+                [getattr(wsum_split, n) for n in split_names])
+
+    # ---- (a) the flagship, made on the card as in phase 2, moved to host
+    # memory (pageable, as torch.from_numpy gives it); the card copy freed
+    u_kn, N_k, fa, x_n = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                     torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    u_host = u_kn.cpu()
+    del u_kn
+    torch.cuda.empty_cache()
+    u_bytes = u_host.nbytes
+
+    # the link: one pinned 512 MB upload (median of 5), and a streamed pass
+    # over u_host (host cast-copy into pinned staging + upload, nothing done
+    # with the chunks), twice
+    pinned = torch.empty(2**26, dtype=torch.float64, pin_memory=True)
+    on_card = torch.empty(2**26, dtype=torch.float64, device=dev)
+    h2d_ms = median_ms(torch, lambda: on_card.copy_(pinned, non_blocking=True))
+    del pinned, on_card
+
+    def one_pass():
+        for _s, _e, _c in stream_columns(u_host, dev):
+            pass
+
+    pass_s = []
+    for _ in range(2):
+        _o, wall, _p, _k, _sp = run(one_pass)
+        pass_s.append(wall)
+    pass_time = min(pass_s)
+
+    m, init_s, peak_init, k1_init, split_init = run(lambda: MBAR(u_host, N_k, device="cuda"))
+    res, fe_s, peak_fe, _k, _sp = run(m.compute_free_energy_differences)
+    ex, ex_s, peak_ex, _k, _sp = run(lambda: m.compute_expectations(x_n))
+    info = m.solver_results[0]["info"] if m.solver_results else {}
+    off = ~np.eye(FLAGSHIP_K, dtype=bool)
+    a = dict(
+        route=mesh_route(m)[0], host_resident=m.u_kn is u_host and m.device.type == "cuda",
+        u_kn_bytes=u_bytes, init_s=init_s, free_energies_s=fe_s, expectations_s=ex_s,
+        resident_init_s=flag["init_s"], resident_free_energies_s=flag["theta_s"],
+        pinned_h2d_gb_per_s=2**29 / (h2d_ms * 1e-3) / 1e9,
+        streamed_pass_s=pass_s, streamed_pass_gb_per_s=u_bytes / pass_time / 1e9,
+        pass_share_of_init=pass_time / init_s, pass_share_of_free_energies=pass_time / fe_s,
+        peak_init=peak_init, peak_free_energies=peak_fe, peak_expectations=peak_ex,
+        resident_peak=flag["peak"], wsum_launches=k1_init, resident_wsum_launches=flag["launches"],
+        split_launches=split_init, polish_iterations=info.get("polish_iterations"),
+        f_k_bit_identical=bool(np.array_equal(m.f_k, flag["f_k"])),
+        f_k_max_err=float(np.abs(m.f_k - flag["f_k"]).max()),
+        delta_f_max_err=float(np.abs(res["Delta_f"] - flag["Delta_f"]).max()),
+        ddelta_f_max_rel_err=float(np.max(np.abs(res["dDelta_f"] - flag["dDelta_f"])[off]
+                                          / flag["dDelta_f"][off])),
+        expectations_mu_max_err=float(np.abs(ex["mu"] - ex7["mu"]).max()),
+        expectations_sigma_max_rel_err=float(np.max(np.abs(ex["sigma"] - ex7["sigma"])
+                                                    / ex7["sigma"])),
+    )
+    emit("11a_host_flagship", **a)
+    peak_a = max(peak_init, peak_fe)
+    if not (a["host_resident"] and a["route"] in ("dd", "mesh") and k1_init == flag["launches"]
+            and not any(split_init)):
+        fail(f"the host-resident flagship left the resident route's path: {a}")
+    if not (a["f_k_max_err"] <= 1e-12 and a["delta_f_max_err"] <= 1e-12
+            and a["ddelta_f_max_rel_err"] <= 1e-10):
+        fail(f"the host-resident flagship differs from phase 2: {a}")
+    if not (a["expectations_mu_max_err"] <= 1e-10 and a["expectations_sigma_max_rel_err"] <= 1e-10):
+        fail(f"the host-resident expectations differ from phase 7's: {a}")
+    if not peak_a <= 0.6 * flag["peak"]:
+        fail(f"host-mode peak {peak_a} above 0.6 x the resident route's {flag['peak']}")
+    del m, res, ex
+
+    # ---- (c) the 1-D mesh from the host, (d) the counts-route bootstrap
+    n_cards = torch.cuda.device_count()
+    mesh = sharding.default_mesh() if n_cards >= 2 else sharding.default_mesh(4, device="cuda:0")
+    mm, mesh_s, peak_mesh, k1_mesh, _sp = run(lambda: MBAR(u_host, N_k, mesh=mesh, device="cuda"))
+    c = dict(shards=len(mesh.devices), init_s=mesh_s, resident_init_s=mesh4["init_s"],
+             peak=peak_mesh, wsum_launches=k1_mesh,
+             f_k_max_err_vs_phase4=float(np.abs(mm.f_k - mesh4["f_k"]).max()))
+    emit("11c_host_mesh", **c)
+    if mm.mesh is not mesh or k1_mesh <= 0 or not c["f_k_max_err_vs_phase4"] <= MESH_DF_TOL:
+        fail(f"the mesh from the host: {c}")
+    del mm
+    mb, boot_s, peak_boot, k1_boot, _sp = run(
+        lambda: MBAR(u_host, N_k, n_bootstraps=N_BOOT, rseed=SEED, device="cuda"))
+    d = dict(init_s=boot_s, resident_init_s=single5["init_s"], peak=peak_boot,
+             wsum_launches=k1_boot, counts_route=mb.bootstrap_at_floor is not None,
+             f_k_boots_max_err_vs_phase5=float(np.abs(mb.f_k_boots - single5["f_boots"]).max()))
+    emit("11d_host_bootstrap", **d)
+    if not (d["counts_route"] and d["f_k_boots_max_err_vs_phase5"] <= 1e-12):
+        fail(f"the counts route from the host: {d}")
+    del mb, u_host, x_n
+    torch.cuda.empty_cache()
+
+    # ---- (b) 1024 x 5,856 per state: made on the card row block by row
+    # block into host memory (the card cannot hold it beside its planes)
+    K, npk = FLAGSHIP_K, 6 * FLAGSHIP_NPK
+    N = K * npk
+    gen = torch.Generator(device=dev).manual_seed(flag_seed + 11)
+    O = torch.linspace(0.0, 5.0, K, dtype=torch.float64, device=dev)
+    Kf = torch.linspace(1.0, 3.0, K, dtype=torch.float64, device=dev)
+    x = (O[:, None] + torch.randn((K, npk), generator=gen, dtype=torch.float64, device=dev)
+         / torch.sqrt(Kf)[:, None]).reshape(-1)
+    t0 = time.perf_counter()
+    u_big = torch.empty((K, N), dtype=torch.float64)
+    for k0 in range(0, K, 16):
+        rows = slice(k0, k0 + 16)
+        u_big[rows].copy_(0.5 * Kf[rows, None] * (x[None, :] - O[rows, None]) ** 2)
+    make_s = time.perf_counter() - t0
+    del x
+    fa_big = (-0.5 * torch.log(2 * torch.pi / Kf)).cpu().numpy()
+    fa_big -= fa_big[0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    need = 2 * u_big.nbytes  # u_kn and its dd planes, 8 B/element each
+    N_k_big = [npk] * K
+    mg, big_s, peak_big, k1_big, split_big = run(lambda: MBAR(u_big, N_k_big, device="cuda"))
+    resg, big_fe_s, peak_big_fe, _k, _sp = run(mg.compute_free_energy_differences)
+    g64, g_s, _p, _k, _sp = run(lambda: mbar_gradient(u_big, np.asarray(N_k_big, np.float64),
+                                                       mg.f_k, device=dev))
+    info = mg.solver_results[0]["info"] if mg.solver_results else {}
+    iters = info.get("polish_iterations", 0)
+    b = dict(
+        K=K, N=N, u_kn_bytes=u_big.nbytes, made_in_s=make_s,
+        resident_route_need_bytes=need, card_total_memory=total,
+        resident_route_arithmetic=f"2 x 8 B x {K} x {N} = {need} B > {total} B: {need > total}",
+        route=mesh_route(mg)[0], init_s=big_s, free_energies_s=big_fe_s, f64_gradient_s=g_s,
+        phase1_s=info.get("phase1_s"), phase2_s=info.get("phase2_s"), polish_iterations=iters,
+        polish_s_per_iteration=info.get("phase2_s", float("nan")) / max(iters, 1),
+        wsum_launches=k1_big, split_launches=split_big, peak_init=peak_big,
+        peak_free_energies=peak_big_fe, converged=info.get("converged"),
+        gradient_norm_per_sample=info.get("gnorm", float("nan")) / N,
+        f64_gradient_norm_per_sample=float(torch.linalg.norm(g64)) / N,
+        max_abs_z=max_abs_z(resg, fa_big),
+    )
+    emit("11b_host_6x", **b)
+    if not (b["route"] in ("dd", "mesh") and k1_big > 0 and info.get("converged")
+            and b["gradient_norm_per_sample"] <= 1e-11
+            and b["f64_gradient_norm_per_sample"] <= 1e-11):
+        fail(f"the 6x problem did not solve from the host: {b}")
+    if not max(peak_big, peak_big_fe) < total:
+        fail(f"the 6x problem's peak {max(peak_big, peak_big_fe)} reached the card's {total}")
+    check_free_energies(resg, b["max_abs_z"], "6x host-resident")
+    del mg, resg, u_big
+    emit("11_wall", s=time.perf_counter() - t_phase, wsum_launches=k1_total)
+    return k1_total
+
+
 def main():
     import torch
 
@@ -1928,7 +2127,7 @@ def main():
     res = mbar.compute_free_energy_differences()
     torch.cuda.synchronize()
     theta_s = time.perf_counter() - t0
-    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_bytes = flag_peak = torch.cuda.max_memory_allocated()
 
     route, shards = mesh_route(mbar)
     info = mbar.solver_results[0]["info"] if route in ("dd", "mesh") else {}
@@ -1974,6 +2173,9 @@ def main():
     if not vs_f64 <= 1.0e-8:
         fail(f"dd Delta_f differs from the f64 adaptive solve by {vs_f64:.3e}")
     f_flag, f_adaptive = mbar.f_k.copy(), ref.f_k.copy()
+    # phase 11 holds the host-resident route to phase 2's
+    flag11 = dict(f_k=f_flag, Delta_f=res["Delta_f"].copy(), dDelta_f=res["dDelta_f"].copy(),
+                  launches=flag_launches, peak=flag_peak, init_s=init_s, theta_s=theta_s)
     sigma_asym = res["dDelta_f"][0, 1:].copy()
     flag_walls = dict(init_s=init_s, theta_s=theta_s)
     # phase 7 reads phase 2's free energies on three states and its
@@ -2105,6 +2307,7 @@ def main():
     stationarity = float(np.abs(f_sci - (f_dd - f_dd[0])).max())
     k5_vs_one = float((ln_mesh - ln_one).abs().max())
     df_vs_flag = float(np.abs(mbar.f_k - f_flag).max())
+    mesh11 = dict(f_k=mbar.f_k.copy(), init_s=init_s)
     df_vs_f64 = float(np.abs(mbar.f_k - f_adaptive).max())
     # a 3-shard pass on cuda:0: 999,424 samples leave pad columns
     mesh3 = sharding.default_mesh(3, device="cuda:0")
@@ -2242,7 +2445,8 @@ def main():
              f"{bis['polish_iterations'].tolist()} polish iterations")
     boot_mbar = mbar  # phase 7 reuses its replicates, phase 9 compares with them
     single5 = dict(f_k=mbar.f_k.copy(), hinv=info["hinv"], f_boots=mbar.f_k_boots.copy(),
-                   at_floor=bi12["at_floor"].copy(), exact_iters=bi12["exact_iters"].copy())
+                   at_floor=bi12["at_floor"].copy(), exact_iters=bi12["exact_iters"].copy(),
+                   init_s=boot_init_s)
     del uh, ul, mbar, res, counts, direct, fb12, fb7, fs
     torch.cuda.empty_cache()
 
@@ -2378,7 +2582,8 @@ def main():
     del mbar, log_w, res_svd, res_ew
     torch.cuda.empty_cache()
 
-    phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, boot_mbar, ck_path)
+    ex7 = phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, boot_mbar,
+                 ck_path)
     ck_dir.cleanup()
     del boot_mbar
     torch.cuda.empty_cache()
@@ -2389,13 +2594,15 @@ def main():
     mesh2d_split, mesh2d_err = phase10(torch, np, slice_state, f_slice, route_ms)
     for name, e in mesh2d_err.items():
         err[name] = max(err[name], e)
+    host_k1 = phase11(torch, np, flag_seed, flag11, mesh11, single5, ex7)
 
     # ---- the kernels line: launches from each one's main-path run
     K, Nf, Ns = FLAGSHIP_K, N_flag, N_slice
     KS = SLICE_K
     rows = [
         ("wsum_dd", "pymbar_tpu_torch/csrc/wsum.cu", "pymbar_tpu/ops/pallas_kernels.py:584",
-         flag_launches + mesh_boot_k1, bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
+         flag_launches + mesh_boot_k1 + host_k1,
+         bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
         ("column_shift", "pymbar_tpu_torch/csrc/wsum_split.cu",
          "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0] + mesh2d_split[0],
          bound(4 * KS * Ns + 4 * KS, 4 * Ns, 2 * KS * Ns, F32_OPS_PER_S)),

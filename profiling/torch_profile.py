@@ -3,7 +3,7 @@
 
     python3 profiling/torch_profile.py [flagship] [slice] [mesh] [bootstrap] [diagnostics]
                                        [expectations] [clusters] [fes] [mesh_bootstrap]
-                                       [batched_bootstrap] [boot_budgets]
+                                       [batched_bootstrap] [boot_budgets] [host]
 
 Configurations (harmonic oscillators, O = linspace(0, 5), K_f =
 linspace(1, 3), float64 u_kn made on the card from a seed):
@@ -108,6 +108,17 @@ W W^T three ways (one bmm, a matmul per replicate, a bmm over
 of 64, 128, 256 in turns) and ``_TH_RESIDENT_BUDGET_BYTES`` at K = 1024 x
 2,500 samples per state (21 GB of u_kn), the resident fast plane against
 the recomputed exp in turns: walls, phase walls, peak memory.
+
+``host`` holds the flagship's u_kn in host memory (pageable, as
+``torch.from_numpy`` gives it) against the same matrix on the card:
+``MBAR``, ``compute_free_energy_differences()`` and
+``compute_expectations(x)`` by the resident and the host-resident route in
+turns (resident, host, host, resident, after one warm-up of each: walls
+and peak above what was resident); one pinned 512 MB upload (median of
+5), and a streamed pass over u_kn (``mbar_core.stream_columns``, nothing
+done with the chunks) from pageable and from pinned host memory, three
+each: GB/s; then one profiler trace of the host-resident MBAR + free
+energies (device time per kernel and copy, the device-busy share).
 """
 
 import json
@@ -908,6 +919,63 @@ def profile_boot_budgets(torch, card):
         torch.cuda.empty_cache()
 
 
+def profile_host(torch, card):
+    """The flagship with u_kn in host memory against the resident route."""
+    from pymbar_tpu_torch import MBAR
+    from pymbar_tpu_torch.ops.mbar_core import stream_columns
+
+    dev = torch.device("cuda", 0)
+    u, N_k, x = oscillators(torch, *CONFIGS["flagship"][:2], dev, with_x=True)
+    u_host = u.cpu()
+    sources = {"resident": u, "host": u_host}
+
+    def run(route):
+        """Walls and peaks above resident of MBAR, free energies and
+        expectations on ``route``'s u_kn."""
+        out = {}
+        resident = torch.cuda.memory_allocated()
+        steps = (("mbar_init", lambda: MBAR(sources[route], N_k, device="cuda")),
+                 ("free_energies", lambda: m.compute_free_energy_differences()),
+                 ("expectations", lambda: m.compute_expectations(x)))
+        m = None
+        for name, fn in steps:
+            torch.cuda.reset_peak_memory_stats()
+            out[f"{name}_s"], res = timed(torch, fn)
+            out[f"{name}_peak_above_resident"] = torch.cuda.max_memory_allocated() - resident
+            if m is None:
+                m = res
+        return out
+
+    for route in ("resident", "host"):
+        run(route)  # warm-up
+    turns = {"resident": [], "host": []}
+    for route in ("resident", "host", "host", "resident"):
+        turns[route].append(run(route))
+    print(json.dumps(dict(config="host", card=card, u_kn_bytes=u.nbytes, turns=turns)), flush=True)
+
+    pinned = torch.empty(2**26, dtype=torch.float64, pin_memory=True)
+    on_card = torch.empty(2**26, dtype=torch.float64, device=dev)
+    h2d_ms = median_ms(torch, lambda: on_card.copy_(pinned, non_blocking=True))
+    del pinned, on_card
+    passes = {}
+    for name, src in (("pageable", u_host), ("pinned", u_host.pin_memory())):
+        walls = []
+        for _ in range(3):
+            wall, _ = timed(torch, lambda: [None for _c in stream_columns(src, dev)])
+            walls.append(wall)
+        passes[name] = dict(walls_s=walls, gb_per_s=u.nbytes / min(walls) / 1e9)
+        del src
+    print(json.dumps(dict(config="host", card=card, pinned_h2d_gb_per_s=2**29 / (h2d_ms * 1e-3) / 1e9,
+                          streamed_pass=passes)), flush=True)
+    del u
+    torch.cuda.empty_cache()
+    def both():
+        return MBAR(u_host, N_k, device="cuda").compute_free_energy_differences()
+
+    wall, _ = timed(torch, both)
+    print(json.dumps(dict(config="host", card=card, **trace_kernels(torch, both, wall))), flush=True)
+
+
 def main():
     import torch
 
@@ -916,7 +984,8 @@ def main():
     extra = {"mesh": profile_mesh, "bootstrap": profile_bootstrap, "diagnostics": profile_diagnostics,
              "expectations": profile_expectations, "clusters": profile_clusters,
              "fes": profile_fes, "mesh_bootstrap": profile_mesh_bootstrap,
-             "batched_bootstrap": profile_batched_bootstrap, "boot_budgets": profile_boot_budgets}
+             "batched_bootstrap": profile_batched_bootstrap, "boot_budgets": profile_boot_budgets,
+             "host": profile_host}
     names = sys.argv[1:] or [*CONFIGS, *extra]
     unknown = [n for n in names if n not in CONFIGS and n not in extra]
     if unknown:

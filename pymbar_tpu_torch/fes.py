@@ -57,7 +57,7 @@ from pymbar_tpu_torch.solvers import (
     _solve_mbar_for_all_states,
     batched_bootstrap_solve,
 )
-from pymbar_tpu_torch.solvers_large import bootstrap_polish_dd, dev_split_planes
+from pymbar_tpu_torch.solvers_large import bootstrap_polish_dd, stream_split_planes
 from pymbar_tpu_torch.utils import DataError, ParameterError, kn_to_n, logsumexp
 
 logger = logging.getLogger(__name__)
@@ -172,6 +172,13 @@ class FES:
             logger.warning(f"Warning: parameter {key}={val} is unrecognized and unused.")
 
         self.N_k = np.array(N_k, dtype=np.int64)
+        if (torch.is_tensor(u_kn) and u_kn.device.type == "cpu" and device is not None
+                and torch.device(device).type == "cuda"):
+            raise ParameterError(
+                "FES keeps u_kn on the device it computes on: a CPU tensor with "
+                f"device={device!r} (MBAR's host-resident u_kn) is not supported "
+                "here; pass a CUDA tensor, numpy, or device='cpu'"
+            )
         # one float64 tensor, shared with the internal MBAR
         self.u_kn = _u_tensor(u_kn, self.N_k, device)
         K, N = self.u_kn.shape
@@ -457,7 +464,7 @@ class FES:
         0, as there)."""
         m = self.mbar
         if route == "counts":
-            uh, ul = dev_split_planes(m.u_kn)
+            uh, ul = stream_split_planes(m.u_kn)
             f_boots, n_fail, _info = bootstrap_polish_dd(
                 uh, ul, m.N_k, m.f_k, m.solver_results[0]["info"]["hinv"],
                 bootstrap_counts(all_indices, m.N),
@@ -471,7 +478,7 @@ class FES:
         f_boots = np.zeros((len(all_indices), m.K))
         for b, indices in enumerate(all_indices):
             f_boots[b], _results = _solve_mbar_for_all_states(
-                m.u_kn.index_select(1, torch.as_tensor(indices, device=m.u_kn.device)),
+                m.u_kn.index_select(1, torch.as_tensor(indices, device=m.device)),
                 m.N_k, np.asarray(m.f_k), m.states_with_samples, protocol,
             )
         return f_boots, 0
@@ -589,7 +596,7 @@ class FES:
     def _setup_fes_kde(self, kde_parameters):
         """Configure the weighted Gaussian KDE (sklearn surface), on u_kn's
         device."""
-        kde = GaussianKDE(device=self.u_kn.device)
+        kde = GaussianKDE(device=self.mbar.device)
         kde_defaults = kde.get_params()
         for k in kde_defaults:
             if k in kde_parameters:
@@ -611,7 +618,7 @@ class FES:
             x_n = x_n.reshape(-1, 1)
 
         if b > 0:
-            kde = GaussianKDE(device=self.u_kn.device)
+            kde = GaussianKDE(device=self.mbar.device)
             kde.set_params(**self.kde.get_params())
         else:
             kde = self.kde
@@ -1246,7 +1253,7 @@ class FES:
                                   m.states_with_samples, m.f_k, m.N_k, nbins)
             return m._theta_svd_ew_lowrank(gram, N_k).cpu().numpy()
 
-        dev = m.u_kn.device
+        dev = m.device
         W_nk = torch.zeros((m.N, K + nbins), dtype=torch.float64, device=dev)
         W_nk[:, 0:K] = m._W_nk_tensor()
         log_w_n = _unnormalized_log_weights(m.u_kn, self.u_n, m.N_k, m.f_k)

@@ -12,15 +12,27 @@ the entropy and enthalpy and the covariance of sums; the solve on a 1-D
 device mesh (``mesh=``) and bootstrap replicates (``n_bootstraps=``), on
 one device or, with every state sampled, on the mesh's sharded planes.
 
-``u_kn`` is held as a float64 tensor on one device: a tensor stays where it
-is, a numpy array goes to ``device`` (default: the CUDA card; without one,
-pass ``device="cpu"``).  Nothing moves between devices on its own.  Theta's
-K x K algebra runs where the Gram is: on the card through the rank-nnz
-form, on the CPU through the dense numpy eigh + pinv; the 'svd' estimator
-factors W on u_kn's device.  The expectations augment the states on
-u_kn's device as well: below ``_AUG_STREAM_BYTES`` of u_kn they build the
-N x (K + NL + S) log-weights, above it they stream u_kn's column chunks
-through two passes and never form that matrix.
+``self.u_kn`` is the stored matrix and ``self.device`` where the work runs.
+A tensor stays where it is and the work runs there; a numpy array goes to
+``device`` as a float64 tensor (default: the CUDA card; without one, pass
+``device="cpu"``).  A CPU tensor with a CUDA ``device`` is host-resident:
+``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing, and
+every pass over u_kn streams its column chunks to the card through two
+pinned staging buffers (``mbar_core.stream_columns``): the dd split into
+the planes, the Gram of Theta, N_eff and the overlap, ``Log_W_nk`` and
+``W_nk`` (into host memory), the expectations' passes, the BAR and
+mean-reduced-potential starts (only what they gather).  The card then
+holds the dd planes and chunk-sized buffers, never the float64 matrix,
+except where a route reads it whole: a protocol other than "dd" (below
+the dd gate, or asked for) uploads it for the solve and frees it after;
+the expectations below ``_AUG_STREAM_BYTES`` and 'svd' (which factors
+the N x K W on the card) upload it too; replicates off the counts route
+are gathered on the host one by one and uploaded.  Theta's K x K algebra
+runs where the Gram is: on the card through the rank-nnz form, on the
+CPU through the dense numpy eigh + pinv.  The expectations augment the
+states on ``self.device``: below ``_AUG_STREAM_BYTES`` of u_kn they build
+the N x (K + NL + S) log-weights, above it they stream u_kn's column
+chunks through two passes and never form that matrix.
 """
 
 import logging
@@ -30,11 +42,15 @@ import torch
 
 from pymbar_tpu_torch import solvers as mbar_solvers
 from pymbar_tpu_torch.ops.mbar_core import (
-    _col_chunks,
+    _log_w_blocks,
     _logden_direct,
+    _same_device,
+    _work_on,
     log_denominator_n,
     mbar_gram_normalization,
     mbar_log_W_nk,
+    stream_columns,
+    u_kn_on,
 )
 from pymbar_tpu_torch.ops.logsumexp import logsumexp
 from pymbar_tpu_torch.other_estimators import bar
@@ -121,29 +137,43 @@ def bootstrap_counts(bootstrap_rints, n_total):
     return counts
 
 
-def _unnormalized_log_weights(u_kn, u_n, N_k, f_k):
+def _unnormalized_log_weights(u_kn, u_n, N_k, f_k, device=None):
     """log w_n of a target state u_n, -logsumexp_k[f_k + u_n - u_kn] weighted
-    by N_k, as an (N,) float64 tensor on u_kn's device: one pass over u_kn's
-    column chunks, each column reduced alone (reference mbar.py:1919-1934)."""
-    dev = u_kn.device
+    by N_k, as an (N,) float64 tensor on ``device`` (default: u_kn's own):
+    one pass over u_kn's column chunks, each column reduced alone
+    (reference mbar.py:1919-1934)."""
+    dev = _work_on(u_kn, device)[1]
     f = torch.as_tensor(np.asarray(f_k, dtype=np.float64), device=dev)[:, None]
     b = torch.as_tensor(np.asarray(N_k, dtype=np.float64), device=dev)[:, None]
     u_n = torch.as_tensor(u_n, dtype=torch.float64, device=dev)
     out = torch.empty(u_kn.shape[1], dtype=torch.float64, device=dev)
-    for s, e in _col_chunks(u_kn):
-        out[s:e] = -logsumexp(f + u_n[None, s:e] - u_kn[:, s:e], axis=0, b=b)
+    for s, e, u_c in stream_columns(u_kn, dev):
+        out[s:e] = -logsumexp(f + u_n[None, s:e] - u_c, axis=0, b=b)
     return out
 
 
-def _same_device(a, b):
-    a, b = torch.device(a), torch.device(b)
-    if a.type != b.type:
-        return False
-    if a.type == "cuda":
-        ia = torch.cuda.current_device() if a.index is None else a.index
-        ib = torch.cuda.current_device() if b.index is None else b.index
-        return ia == ib
-    return True
+def _kln_tensor(u_kln, N_k):
+    """A (K, L, N_max) u_kln tensor as (L, N), sample blocks in state order."""
+    K, _L, N_max = u_kln.shape
+    slot = torch.arange(N_max, device=u_kln.device)
+    n_k = torch.as_tensor(N_k[:K], device=u_kln.device)
+    return u_kln.permute(1, 0, 2)[:, slot[None, :] < n_k[:, None]]
+
+
+def _place(u_kn, N_k, device):
+    """(u_kn, the device the work runs on) for :class:`MBAR`.
+
+    A CPU tensor with a CUDA ``device`` is host-resident: it is kept as
+    given (any dtype and layout; a u_kln is laid out as (L, N) on the
+    host) and every pass streams its column chunks to the card.  Without
+    a card that raises as :func:`target_device` does.  Anything else is
+    placed by :func:`_u_tensor` and the work runs where it lies."""
+    if (torch.is_tensor(u_kn) and u_kn.device.type == "cpu" and device is not None
+            and torch.device(device).type == "cuda"):
+        dev = _work_on(u_kn, target_device(device))[1]
+        return (_kln_tensor(u_kn, N_k) if u_kn.ndim == 3 else u_kn), dev
+    u = _u_tensor(u_kn, N_k, device)
+    return u, u.device
 
 
 def _u_tensor(u_kn, N_k, device):
@@ -157,11 +187,7 @@ def _u_tensor(u_kn, N_k, device):
                 "move the tensor explicitly"
             )
         if u_kn.ndim == 3:
-            # u_kln (K, L, N_max) -> (L, N), sample blocks in state order
-            K, _L, N_max = u_kn.shape
-            slot = torch.arange(N_max, device=u_kn.device)
-            n_k = torch.as_tensor(N_k[:K], device=u_kn.device)
-            u_kn = u_kn.permute(1, 0, 2)[:, slot[None, :] < n_k[:, None]]
+            u_kn = _kln_tensor(u_kn, N_k)
         return u_kn.to(torch.float64).contiguous()
     if np.ndim(u_kn) == 3:
         u_kn = kln_to_kn(np.asarray(u_kn), N_k=N_k)
@@ -184,7 +210,7 @@ def _f64(x, copy=False):
 
 def _cols(x, c0, c1, dev):
     """Columns c0:c1 of a numpy array or tensor as float64 on ``dev``: a
-    numpy input goes to the card one chunk at a time."""
+    numpy input or a host tensor goes to the card one chunk at a time."""
     return torch.as_tensor(x[..., c0:c1], dtype=torch.float64, device=dev)
 
 
@@ -295,7 +321,12 @@ class MBAR:
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
     a numpy ``u_kn`` is placed (default "cuda", and without a card a
     :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
-    device is used as it is).
+    device is used as it is).  A CPU tensor with a CUDA ``device`` is
+    host-resident: ``self.u_kn`` keeps the caller's tensor in host memory
+    (``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing) and
+    the work runs on ``self.device``, every pass streaming u_kn's column
+    chunks through pinned staging to the card (see the module docstring).
+    ``self.device`` is where the work runs in every mode.
 
     ``initialize="BAR"`` chains pairwise BAR along adjacent sampled states:
     each pair's work values are gathered from ``u_kn`` on its device in one
@@ -355,7 +386,7 @@ class MBAR:
             logger.warning("n_bootstraps must be an integer >= 0")
 
         self.N_k = np.array(N_k, dtype=np.int64)
-        self.u_kn = _u_tensor(u_kn, self.N_k, device)
+        self.u_kn, self.device = _place(u_kn, self.N_k, device)
         K, N = self.u_kn.shape
 
         if verbose:
@@ -466,6 +497,7 @@ class MBAR:
             self.f_k, f_boots, n_fail, info = solve_mbar_dd_bootstrap(
                 self.u_kn, self.N_k, self.f_k, counts,
                 tol=stage.get("tol", 1.0e-12), options=stage.get("options"), verbose=verbose,
+                device=self.device,
             )
             self.solver_results = [dict(x=self.f_k, success=bool(info["converged"]), info=info)]
             self.bootstrap_at_floor = info["bootstrap_at_floor"]
@@ -476,7 +508,8 @@ class MBAR:
                 )
         else:
             self.f_k, self.solver_results = mbar_solvers._solve_mbar_for_all_states(
-                self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol
+                self.u_kn, self.N_k, self.f_k, self.states_with_samples, self.solver_protocol,
+                device=self.device,
             )
 
         if self.n_bootstraps > 0:
@@ -503,15 +536,21 @@ class MBAR:
         if self.verbose:
             logger.info(f"Final dimensionless free energies f_k = {self.f_k}")
 
+    def _u_bytes(self):
+        """u_kn's size in float64, the dtype the work runs in."""
+        return 8 * self.K * self.N
+
     def _dd_sized(self):
-        """The route gate's size test: a CUDA u_kn of at least _DD_ROUTE_BYTES."""
-        return self.u_kn.is_cuda and self.u_kn.nbytes >= _DD_ROUTE_BYTES
+        """The route gate's size test: work on a card, u_kn of at least
+        _DD_ROUTE_BYTES (host-resident or not)."""
+        return self.device.type == "cuda" and self._u_bytes() >= _DD_ROUTE_BYTES
 
     def _batched_boot_sized(self):
         """The batched bootstrap's gate: a CUDA u_kn of at most
         _BATCHED_BOOT_BYTES (the CPU keeps the sequential route, as the JAX
-        package does off a TPU)."""
-        return self.u_kn.is_cuda and self.u_kn.nbytes <= _BATCHED_BOOT_BYTES
+        package does off a TPU; a host-resident u_kn too, since the route
+        gathers (B, K, N) on the card)."""
+        return self.u_kn.is_cuda and self._u_bytes() <= _BATCHED_BOOT_BYTES
 
     def _bootstrap_solve_batched(self, stage, verbose):
         """Every replicate solved batched on its resampled columns from the
@@ -558,12 +597,13 @@ class MBAR:
         """Each replicate solved in turn on its resampled columns
         ``u_kn[:, rints]`` from the base f_k, or with ``bar_start`` from a
         BAR chain on those columns (the JAX package's sequential route,
-        mbar.py:1013-1031).  Returns f_k_boots (B, K)."""
+        mbar.py:1013-1031); a host-resident u_kn's columns are gathered on
+        the host and uploaded.  Returns f_k_boots (B, K)."""
         f_k_boots = np.zeros((self.n_bootstraps, self.K))
         maxfrac = int(max(1, 0.1 * self.n_bootstraps))
         for b in range(self.n_bootstraps):
             rints = torch.as_tensor(self.bootstrap_rints[b], device=self.u_kn.device)
-            u_b = self.u_kn.index_select(1, rints)
+            u_b = self.u_kn.index_select(1, rints).to(self.device, torch.float64)
             f_k_init = self.f_k.copy()
             if bar_start:
                 f_k_init = self._initialize_with_bar(u_b, f_k_init=self.f_k)
@@ -585,12 +625,13 @@ class MBAR:
         e.g. from a checkpoint or from ``pymbar_tpu.MBAR(...).f_k``, and
         every ``compute_*`` surface then behaves as on a freshly solved
         object.  ``u_kn``, ``N_k`` and ``f_k`` may be numpy arrays; ``u_kn``
-        is placed as in ``__init__``.  Returns an MBAR with
+        is placed as in ``__init__`` (a CPU tensor with a CUDA ``device``
+        stays in host memory).  Returns an MBAR with
         ``n_bootstraps = 0``.
         """
         self = cls.__new__(cls)
         self.N_k = np.array(N_k, dtype=np.int64)
-        self.u_kn = _u_tensor(u_kn, self.N_k, device)
+        self.u_kn, self.device = _place(u_kn, self.N_k, device)
         K, N = self.u_kn.shape
         if int(np.sum(self.N_k)) != N:
             raise ParameterError(
@@ -632,7 +673,7 @@ class MBAR:
         indices = self.rng.choice(np.arange(self.N), maxpoint)
         if self.verbose:
             sel = torch.as_tensor(indices, device=self.u_kn.device)
-            u_sub = self.u_kn.index_select(1, sel).cpu().numpy()
+            u_sub = self.u_kn.index_select(1, sel).to(torch.float64).cpu().numpy()
             for k in range(self.K):
                 for l in range(k):
                     uzero = u_sub[k] - u_sub[l]
@@ -686,12 +727,22 @@ class MBAR:
     # Weights
     # -------------------------------------------------------------------------
 
+    def _weights_to_host(self, exp=False):
+        """Log_W_nk (or with ``exp`` W_nk) as an (N, K) numpy array, each
+        column chunk's block computed on ``self.device`` and written
+        transposed into host memory: the card never holds N x K."""
+        out = np.empty((self.N, self.K))
+        for s, e, blk in _log_w_blocks(self.u_kn, self.N_k, self.f_k, self.device):
+            out[s:e] = (blk.exp_() if exp else blk).T.cpu().numpy()
+        return out
+
     @property
     def Log_W_nk(self):
         """The N x K log-weight matrix (reference mbar.py:455) as a numpy
-        array, computed on u_kn's device on first access and cached."""
+        array, computed on ``self.device`` chunk by chunk on first access
+        and cached."""
         if self._Log_W_nk is None:
-            self._Log_W_nk = mbar_log_W_nk(self.u_kn, self.N_k, self.f_k).cpu().numpy()
+            self._Log_W_nk = self._weights_to_host()
         return self._Log_W_nk
 
     @Log_W_nk.setter
@@ -700,15 +751,15 @@ class MBAR:
         self._Log_W_nk_assigned = True
 
     def _log_W_nk_tensor(self):
-        """Log_W_nk as a new (N, K) tensor on u_kn's device.  Computed there
-        (the cached host copy holds the same values, and moving it back
-        would cost more than the pass), unless Log_W_nk was assigned."""
+        """Log_W_nk as a new (N, K) tensor on ``self.device``.  Computed
+        there (the cached host copy holds the same values, and moving it
+        back would cost more than the pass), unless Log_W_nk was assigned."""
         if not self._Log_W_nk_assigned:
-            return mbar_log_W_nk(self.u_kn, self.N_k, self.f_k)
-        return torch.tensor(self._Log_W_nk, dtype=torch.float64, device=self.u_kn.device)
+            return mbar_log_W_nk(self.u_kn, self.N_k, self.f_k, self.device)
+        return torch.tensor(self._Log_W_nk, dtype=torch.float64, device=self.device)
 
     def _W_nk_tensor(self):
-        """exp(Log_W_nk) as an (N, K) tensor on u_kn's device."""
+        """exp(Log_W_nk) as an (N, K) tensor on ``self.device``."""
         return self._log_W_nk_tensor().exp_()
 
     @property
@@ -717,8 +768,12 @@ class MBAR:
 
         ``W_nk[n, k]`` is sample n's normalized weight in state k's
         estimate (columns sum to 1; rows weighted by N_k sum to 1).
+        Computed chunk by chunk on ``self.device`` (from the assigned
+        Log_W_nk when there is one).
         """
-        return self._W_nk_tensor().cpu().numpy()
+        if self._Log_W_nk_assigned:
+            return self._W_nk_tensor().cpu().numpy()
+        return self._weights_to_host(exp=True)
 
     def weights(self):
         """Retrieve the N x K weight matrix (method form of :attr:`W_nk`).
@@ -736,10 +791,10 @@ class MBAR:
     # -------------------------------------------------------------------------
 
     def _gram_colsum(self):
-        """(W^T W, colsum W) as tensors on u_kn's device, from one streamed
+        """(W^T W, colsum W) as tensors on ``self.device``, from one streamed
         pass: W never exists in (N, K) form."""
         gram, colsum, _rowstats = mbar_gram_normalization(
-            self.u_kn, self.N_k, self.f_k, tolerance=np.inf
+            self.u_kn, self.N_k, self.f_k, tolerance=np.inf, device=self.device
         )
         return gram, colsum
 
@@ -750,7 +805,7 @@ class MBAR:
         weighted estimate at state k is effectively worth; bounded by
         ``N_k <= N_eff[k] <= sum_k N_k`` for sampled states.  ``sum_n
         W_nk^2`` is the Gram diagonal, so this is one streamed pass on
-        u_kn's device and only the K diagonal values leave it.  Reference:
+        ``self.device`` and only the K diagonal values leave it.  Reference:
         ``pymbar.MBAR.compute_effective_sample_number`` (pymbar 4.x
         mbar.py:496-560).
 
@@ -861,13 +916,13 @@ class MBAR:
 
     def _compute_theta_streamed(self, method=None):
         """Theta over the K states with W consumed in Gram form only: one
-        streamed f64 pass (:func:`mbar_gram_normalization`) on u_kn's device
+        streamed f64 pass (:func:`mbar_gram_normalization`) on ``self.device``
         gives W^T W, the column sums and the row-check aggregates.  A CUDA
         Gram stays on the card for the rank-nnz form
         (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
         accelerator; a CPU Gram takes the dense numpy path
         (:meth:`_theta_from_gram`).  'svd' needs W itself and factors
-        exp(Log_W_nk) on u_kn's device
+        exp(Log_W_nk) on ``self.device``
         (:meth:`_computeAsymptoticCovarianceMatrix`).  Theta is returned as a
         numpy array."""
         if method is None or method == "bootstrap":
@@ -878,7 +933,9 @@ class MBAR:
             )
         if method not in ("svd-ew", "approximate"):
             raise ParameterError(f"Method {method} unrecognized.")
-        gram, colsum, rowstats = mbar_gram_normalization(self.u_kn, self.N_k, self.f_k)
+        gram, colsum, rowstats = mbar_gram_normalization(
+            self.u_kn, self.N_k, self.f_k, device=self.device
+        )
         self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
         return self._theta_from_gram(gram, self.N_k, method).cpu().numpy()
 
@@ -928,7 +985,7 @@ class MBAR:
 
         Notes
         -----
-        Everything runs on u_kn's device; numpy inputs go there.  From
+        Everything runs on ``self.device``; numpy inputs go there.  From
         ``_AUG_STREAM_BYTES`` of ``u_kn`` up (and not for 'svd') the
         machinery streams over u_kn's column chunks and no N x (K+NL+S)
         matrix exists.  ``u_ln is self.u_kn`` (and, for entropy,
@@ -968,7 +1025,7 @@ class MBAR:
         L_list = np.unique(state_list)
         NL = len(L_list)
         stream = (
-            self.u_kn.nbytes >= _AUG_STREAM_BYTES
+            self._u_bytes() >= _AUG_STREAM_BYTES
             and uncertainty_method != "svd"
             and (uncertainty_method != "bootstrap" or self.n_bootstraps > 0)
             # every public caller builds contiguous extra states; anything
@@ -1006,9 +1063,12 @@ class MBAR:
             logfactors = np.zeros(0, dtype=np.float64)
 
         if a_alias:
-            # per-row min in one pass on u_kn's device; the shift itself is
+            # per-row min in one pass on self.device; the shift itself is
             # applied chunk by chunk inside the streamed passes
-            row_min = self.u_kn.amin(dim=1).cpu().numpy()
+            row_min = torch.full((K,), torch.inf, dtype=torch.float64, device=self.device)
+            for _s, _e, u_c in stream_columns(self.u_kn, self.device):
+                row_min = torch.minimum(row_min, u_c.amin(dim=1))
+            row_min = row_min.cpu().numpy()
             A_min[A_list] = row_min[A_list]
             logfactors[A_list] = np.abs(logfactor * A_min[A_list])
             a_shift = A_min - logfactors
@@ -1053,18 +1113,23 @@ class MBAR:
         return result_vals
 
     def _expectations_materialized(self, A_n, u_ln, state_map, S, L_list, method, need_theta):
-        """The reference's branch (mbar.py:838-1000) on u_kn's device: the
+        """The reference's branch (mbar.py:838-1000) on ``self.device``: the
         N x (K + NL + S) log-weights Log_W, each extra state's and
         pseudo-state's free energy from a logsumexp over its column, Theta
         from exp(Log_W) by :meth:`_asymptotic_theta`; with
         ``method="bootstrap"`` the same again on each replicate's resampled
-        columns ``u_kn[:, rints]`` at its f_k.  Returns (f_aug (msize,),
-        Theta tensor or None, boot or None) with boot = (raw bootstrapped
-        observables (B, S), bootstrapped f_aug (B, msize))."""
+        columns ``u_kn[:, rints]`` at its f_k.  A host-resident u_kn is
+        uploaded whole for it (this branch builds N x (K + NL + S) there
+        anyway).  Returns (f_aug (msize,), Theta tensor or None, boot or
+        None) with boot = (raw bootstrapped observables (B, S), bootstrapped
+        f_aug (B, msize))."""
         K, N = self.K, self.N
         NL = len(L_list)
         msize = K + NL + S
-        dev = self.u_kn.device
+        dev = self.device
+        u_full = u_kn_on(self.u_kn, dev)
+        if u_ln is self.u_kn:
+            u_ln = u_full
         l_of_s = state_map[0, :S].astype(int) if S > 0 else np.zeros(0, int)
         i_of_s = state_map[1, :S].astype(int) if S > 0 else np.zeros(0, int)
         u_ln = torch.as_tensor(u_ln, dtype=torch.float64, device=dev)
@@ -1087,13 +1152,13 @@ class MBAR:
         for n in range(n_total):
             if n == 0:
                 f_aug[:K] = self.f_k
-                u_kn = self.u_kn
+                u_kn = u_full
                 Log_W[:, :K] = self._log_W_nk_tensor()
                 ri = None
             else:
                 f_aug[:K] = self.f_k_boots[n - 1, :]
                 ri = torch.as_tensor(self.bootstrap_rints[n - 1], device=dev)
-                u_kn = self.u_kn.index_select(1, ri)
+                u_kn = u_full.index_select(1, ri)
                 Log_W[:, :K] = mbar_log_W_nk(u_kn, self.N_k, f_aug[:K])
             # per-sample mixture log-normalizer over the sampled states only
             # (Eqns 13-14 of the MBAR paper)
@@ -1137,8 +1202,9 @@ class MBAR:
         """Augmented-state expectations without the N x (K + NL + S) matrix.
 
         The algebra of :meth:`_expectations_materialized` in two passes over
-        u_kn's column chunks (``mbar_core._col_chunks``) on its device; a
-        numpy ``u_ln`` or ``A_n`` goes there one chunk at a time:
+        u_kn's column chunks (``mbar_core.stream_columns``) on
+        ``self.device``, a host-resident u_kn's uploaded one at a time; a
+        numpy ``u_ln`` or ``A_n`` goes there one chunk at a time too:
 
         * pass A (:func:`_aug_a_body`) accumulates each extra state's log
           normalizer log C_l = -logsumexp_n(-u_ln[l] - logden_n) and each
@@ -1163,7 +1229,7 @@ class MBAR:
 
         K = self.K
         msize = K + NL + S
-        dev = self.u_kn.device
+        dev = self.device
         a_alias = a_shift is not None
         sws = np.where(self.N_k > 0)[0]
         sampled = None if len(sws) == K else torch.as_tensor(sws, device=dev)
@@ -1177,7 +1243,6 @@ class MBAR:
         iofs_mode = _idx_mode(i_of_s, n_obs)
         if a_alias:
             shift = torch.as_tensor(a_shift, dtype=torch.float64, device=dev)
-        chunks = _col_chunks(self.u_kn)
 
         def u_ln_cols(u_c, c0, c1):
             return u_c if u_ln_alias else _cols(u_ln, c0, c1, dev)
@@ -1197,8 +1262,7 @@ class MBAR:
             s_l = torch.zeros(NL, dtype=torch.float64, device=dev)
             m_s = torch.full((S,), -torch.inf, dtype=torch.float64, device=dev)
             s_s = torch.zeros(S, dtype=torch.float64, device=dev)
-            for c0, c1 in chunks:
-                u_c = self.u_kn[:, c0:c1]
+            for c0, c1, u_c in stream_columns(self.u_kn, dev):
                 ml, sl, ms, ss = _aug_a_body(
                     u_c, u_ln_cols(u_c, c0, c1),
                     u_c - shift[:, None] if a_alias else log_obs(c0, c1),
@@ -1252,7 +1316,8 @@ class MBAR:
                     return u_c - shift[:, None] if a_alias else _cols(A_n, c0, c1, dev)
 
             M0, c0s, rowstats, (M1, M2, cAs) = mbar_gram_normalization(
-                self.u_kn, self.N_k, self.f_k, sampled=sampled, observable=observable
+                self.u_kn, self.N_k, self.f_k, sampled=sampled, observable=observable,
+                device=dev,
             )
             # exact f64 diagonal scalings: W_L = diag(D_L) W_0 and
             # W_S = diag(E) (A o W_0)[l_of_s]
@@ -1277,7 +1342,8 @@ class MBAR:
                 return torch.cat(rows).exp_()
 
             gram, colsum, rowstats = mbar_gram_normalization(
-                self.u_kn, self.N_k, self.f_k, sampled=sampled, extra_rows=extra_rows
+                self.u_kn, self.N_k, self.f_k, sampled=sampled, extra_rows=extra_rows,
+                device=dev,
             )
             colsum = colsum.cpu().numpy()
 
@@ -1929,7 +1995,7 @@ class MBAR:
                 )
             means = np.zeros(self.K, float)
             for k in self.states_with_samples:
-                means[k] = float(self.u_kn[k, 0 : self.N_k[k]].mean())
+                means[k] = float(self.u_kn[k, 0 : self.N_k[k]].to(self.device, torch.float64).mean())
             if np.max(np.abs(means)) < 0.000001:
                 logger.warning(
                     "Warning: All mean reduced potentials are close to zero. "
@@ -1949,7 +2015,8 @@ class MBAR:
         pair's host work values (w_F, w_R): w_F = u_l - u_k on state k's
         samples, w_R = u_k - u_l on state l's.  ``u_kn`` is a (K, N) tensor
         whose columns follow ``x_kindices``; every pair's values come out of
-        it in one gather on its device."""
+        it in one gather on its device, then are subtracted in float64 on
+        ``self.device`` (a host-resident u_kn uploads only what it gathered)."""
         initialization_order = np.where(self.N_k > 0)[0]
         pairs = list(zip(initialization_order[:-1], initialization_order[1:]))
         if not pairs:
@@ -1964,15 +2031,18 @@ class MBAR:
                 bounds.append(bounds[-1] + idx.size)
         dev = u_kn.device
         ra, rb, c = (torch.as_tensor(np.concatenate(x), device=dev) for x in (rows_a, rows_b, cols))
-        w = (u_kn[ra, c] - u_kn[rb, c]).cpu().numpy()
+        w = (u_kn[ra, c].to(self.device, torch.float64)
+             - u_kn[rb, c].to(self.device, torch.float64)).cpu().numpy()
         return pairs, [(w[bounds[2 * i]:bounds[2 * i + 1]], w[bounds[2 * i + 1]:bounds[2 * i + 2]])
                        for i in range(len(pairs))]
 
     def _computeUnnormalizedLogWeights(self, u_n):
         """log w_n for a target potential u_n (numpy or a tensor):
         -logsumexp_k[f_k + u_n - u_kn] weighted by N_k (reference
-        mbar.py:1919-1934), one reduction on u_kn's device.  Returns numpy."""
-        return _unnormalized_log_weights(self.u_kn, u_n, self.N_k, self.f_k).cpu().numpy()
+        mbar.py:1919-1934), one reduction on ``self.device``.  Returns numpy."""
+        return _unnormalized_log_weights(
+            self.u_kn, u_n, self.N_k, self.f_k, self.device
+        ).cpu().numpy()
 
     def _initialize_with_bar(self, u_kn, f_k_init=None):
         """Chain pairwise BAR along adjacent sampled states (reference

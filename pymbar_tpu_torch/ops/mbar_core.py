@@ -15,8 +15,17 @@ Every function takes ``u_kn`` as a tensor or as numpy (a CPU float64
 tensor then, sharing its memory), the K-vectors N_k and f_k as either, and
 computes on the device ``u_kn`` lives on; only the K-vectors move there.  Eager PyTorch makes a full-size temporary
 for each elementwise op, so every K x N pass walks the sample axis in
-column chunks of at most ``_CHUNK_BYTES`` and updates its chunk
-temporaries in place.
+column chunks of at most ``_CHUNK_BYTES`` (:func:`stream_columns`) and
+updates its chunk temporaries in place.
+
+The passes MBAR runs after placing ``u_kn`` (:func:`core_stats`,
+:func:`self_consistent_update`, :func:`mbar_log_W_nk`,
+:func:`mbar_gram_normalization`) also take ``device``, where the work
+runs.  A CPU ``u_kn`` with a CUDA ``device`` stays in host memory
+(host-resident): each pass uploads its column chunks through two pinned
+staging buffers, the upload of one chunk overlapping the work on the one
+before, and computes in float64 on the card.  With no ``device`` (or u's
+own) the chunks are views of u_kn.
 """
 
 import math
@@ -27,6 +36,7 @@ import torch
 from pymbar_tpu_torch.utils import ensure_type
 
 __all__ = [
+    "stream_columns",
     "validate_inputs",
     "log_denominator_n",
     "core_stats",
@@ -54,14 +64,19 @@ _CHUNK_BYTES = 512 * 2**20
 _PAD_THRESHOLD = 5.0e9
 
 
+def _col_ranges(rows, itemsize, start, stop, extra_rows=0):
+    """(s, e) column ranges over [start, stop), each of at most
+    ``_CHUNK_BYTES`` over ``rows`` + ``extra_rows`` rows of ``itemsize``
+    bytes."""
+    width = max(1, _CHUNK_BYTES // max(1, (rows + extra_rows) * itemsize))
+    return [(s, min(stop, s + width)) for s in range(start, stop, width)]
+
+
 def _col_chunks(u, extra_rows=0):
     """(start, stop) column ranges of at most ``_CHUNK_BYTES`` each, counting
     ``extra_rows`` more rows of u's width that the caller builds per chunk.
     The rows of every leading batch matrix of u count."""
-    N = u.shape[-1]
-    rows = math.prod(u.shape[:-1])
-    width = max(1, _CHUNK_BYTES // max(1, (rows + extra_rows) * u.element_size()))
-    return [(s, min(N, s + width)) for s in range(0, N, width)]
+    return _col_ranges(math.prod(u.shape[:-1]), u.element_size(), 0, u.shape[-1], extra_rows)
 
 
 def _as_tensor(u_kn):
@@ -72,11 +87,133 @@ def _as_tensor(u_kn):
     return torch.from_numpy(np.ascontiguousarray(u_kn, dtype=np.float64))
 
 
+def _same_device(a, b):
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda":
+        ia = torch.cuda.current_device() if a.index is None else a.index
+        ib = torch.cuda.current_device() if b.index is None else b.index
+        return ia == ib
+    return True
+
+
+def _work_on(u, device=None):
+    """(dtype, device) of the work on u's column chunks: u's own when
+    ``device`` is None or u's device, else float64 on ``device``."""
+    if device is None or _same_device(u.device, device):
+        return u.dtype, u.device
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return torch.float64, dev
+
+
+def stream_columns(u_kn, device=None, rows=None, start=0, stop=None):
+    """Yield (s, e, u_c) over the column chunks of u_kn[..., start:stop]:
+    u_c holds columns s:e, of the rows ``rows`` only when given (indices
+    of u's second-to-last axis), on ``device`` (default: u's own).
+
+    On u's own device u_c is a view of u_kn in its dtype (a gathered chunk
+    with ``rows``).  A CPU u_kn with a CUDA ``device`` reaches the card
+    through :func:`_staged_upload`: u_c is then a float64 staging tensor,
+    valid until the next chunk is asked for.  Any other pair of devices
+    moves each chunk with ``Tensor.to`` (float64).  A chunk spans at most
+    ``_CHUNK_BYTES``.
+    """
+    u = _as_tensor(u_kn)
+    dt, dev = _work_on(u, device)
+    stop = u.shape[-1] if stop is None else stop
+    if rows is not None:
+        rows = torch.as_tensor(rows if torch.is_tensor(rows) else np.asarray(rows),
+                               dtype=torch.int64, device=u.device)
+    n_rows = math.prod(u.shape[:-2]) * (u.shape[-2] if rows is None else rows.numel())
+    ranges = _col_ranges(n_rows, dt.itemsize, start, stop)
+    if u.device.type == "cpu" and dev.type == "cuda":
+        yield from _staged_upload(u, dev, rows, ranges)
+        return
+    for s, e in ranges:
+        u_c = u[..., s:e]
+        if rows is not None:
+            u_c = u_c.index_select(-2, rows)
+        yield s, e, u_c.to(dev, dt)
+
+
+def _staged_upload(u, dev, rows, ranges):
+    """:func:`stream_columns` from host memory to a card.
+
+    Two pinned staging buffers of at most ``_CHUNK_BYTES`` each: chunk i
+    is cast to float64 into buffer i % 2 on the host, copied to its card
+    buffer on a side stream with ``non_blocking``, and the current stream
+    waits on that copy's event before the caller's work on the chunk.  The
+    host staging and the upload of chunk i + 1 run while the card works on
+    chunk i; a card buffer is overwritten only after the work on the chunk
+    it held (an event recorded when the caller asks for the next one).
+    """
+    if not ranges:
+        return
+    R = u.shape[0] if rows is None else rows.numel()
+    size = R * (ranges[0][1] - ranges[0][0])
+    host = [torch.empty(size, dtype=torch.float64, pin_memory=True) for _ in range(2)]
+    card = [torch.empty(size, dtype=torch.float64, device=dev) for _ in range(2)]
+    work = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    uploaded = [torch.cuda.Event(), torch.cuda.Event()]
+    consumed = [None, None]
+
+    def stage(i):
+        s, e = ranges[i]
+        b, n = i % 2, R * (e - s)
+        if i >= 2:
+            uploaded[b].synchronize()  # the pinned buffer's last upload has left
+        src = u[:, s:e] if rows is None else u[:, s:e].index_select(0, rows)
+        host[b][:n].view(R, e - s).copy_(src)
+        with torch.cuda.stream(side):
+            if consumed[b] is not None:
+                side.wait_event(consumed[b])
+            card[b][:n].copy_(host[b][:n], non_blocking=True)
+            uploaded[b].record(side)
+
+    try:
+        stage(0)
+        for i, (s, e) in enumerate(ranges):
+            if i + 1 < len(ranges):
+                stage(i + 1)
+            b = i % 2
+            work.wait_event(uploaded[b])
+            yield s, e, card[b][: R * (e - s)].view(R, e - s)
+            consumed[b] = torch.cuda.Event()
+            consumed[b].record(work)
+    finally:
+        # the card buffers return to the allocator on the current stream
+        work.wait_stream(side)
+
+
+def u_kn_on(u_kn, device=None, rows=None):
+    """u_kn[rows] (every row by default) as one tensor on ``device``
+    (default: u's own), filled from :func:`stream_columns`: a host-resident
+    u_kn is uploaded chunk by chunk (float64) and no host copy is made.
+    u_kn itself when it lies there and no rows are selected."""
+    u = _as_tensor(u_kn)
+    dt, dev = _work_on(u, device)
+    if rows is None and _same_device(u.device, dev):
+        return u
+    K = u.shape[0] if rows is None else len(rows)
+    out = torch.empty((K, u.shape[1]), dtype=dt, device=dev)
+    for s, e, u_c in stream_columns(u, dev, rows=rows):
+        out[:, s:e] = u_c
+    return out
+
+
+def _vec(x, dt, dev):
+    """A K-vector (numpy or tensor) as ``dt`` on ``dev``."""
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=dt, device=dev)
+
+
 def _like(x, u):
     """``x`` (numpy or tensor) as a tensor of u's dtype on u's device
     (K-vectors only); ``u`` is a tensor (:func:`_as_tensor`)."""
-    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                           dtype=u.dtype, device=u.device)
+    return _vec(x, u.dtype, u.device)
 
 
 def _matmul(a, b):
@@ -125,79 +262,113 @@ def _logden_direct(u, N_k, f_k):
     return torch.log(a.sum(dim=-2)) + a_max
 
 
+def _prepare(u_kn, N_k, f_k, device=None):
+    """(u tensor, N_k, f_k, device): the K-vectors in the work's dtype on
+    the device the work runs on (:func:`_work_on`)."""
+    u = _as_tensor(u_kn)
+    dt, dev = _work_on(u, device)
+    return u, _vec(N_k, dt, dev), _vec(f_k, dt, dev), dev
+
+
 def log_denominator_n(u_kn, N_k, f_k):
     """Per-sample mixture log-normalizer: logsumexp_k[f_k - u_kn] weighted by N_k.
 
     Shapes: u_kn (K, N); N_k, f_k (K,).  Returns (N,).  Empty states
     (N_k == 0) drop out exactly.  Batched: u_kn (B, K, N) and f_k (B, K)
-    give (B, N); :func:`_log_numerator_k`, :func:`core_stats`,
-    :func:`self_consistent_update` (all states), :func:`mbar_gradient`,
-    :func:`mbar_objective`, :func:`mbar_w_nk_gram` and :func:`mbar_hessian`
-    take the same leading batch dimension.
+    give (B, N); :func:`core_stats`, :func:`self_consistent_update` (all
+    states), :func:`mbar_gradient`, :func:`mbar_objective`,
+    :func:`mbar_w_nk_gram` and :func:`mbar_hessian` take the same leading
+    batch dimension.
     """
-    u_kn = _as_tensor(u_kn)
-    N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
-    out = torch.empty(u_kn.shape[:-2] + u_kn.shape[-1:], dtype=u_kn.dtype, device=u_kn.device)
-    for s, e in _col_chunks(u_kn):
-        out[..., s:e] = _logden_direct(u_kn[..., s:e], N_k, f_k)
+    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k)
+    out = torch.empty(u_kn.shape[:-2] + u_kn.shape[-1:], dtype=N_k.dtype, device=dev)
+    for s, e, u_c in stream_columns(u_kn):
+        out[..., s:e] = _logden_direct(u_c, N_k, f_k)
     return out
+
+
+def _lse_init(shape, dt, dev):
+    """(running max, rescaled sum) of an empty logsumexp of ``shape``."""
+    return (torch.full(shape, -torch.inf, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
+
+
+def _lse_add(m, acc, a):
+    """Fold a chunk's terms ``a`` (..., nc), consumed in place, into a
+    running logsumexp over the last axis (flash-style rescaling)."""
+    m_new = torch.maximum(m, a.max(dim=-1).values)
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    return m_new, acc * torch.exp(m - m_safe) + a.sub_(m_safe[..., None]).exp_().sum(dim=-1)
+
+
+def _lse_end(m, acc):
+    return torch.log(acc) + torch.where(torch.isfinite(m), m, 0.0)
 
 
 def _log_numerator_k(u_kn, logden_n):
     """Per-state reweighted log-sum logsumexp_n[-logden_n - u_kn], streamed
-    over column chunks with a running max (flash-style rescaling)."""
-    m = torch.full(u_kn.shape[:-1], -torch.inf, dtype=u_kn.dtype, device=u_kn.device)
-    s = torch.zeros(u_kn.shape[:-1], dtype=u_kn.dtype, device=u_kn.device)
-    for c0, c1 in _col_chunks(u_kn):
-        a = -logden_n[..., None, c0:c1] - u_kn[..., c0:c1]
-        m_new = torch.maximum(m, a.max(dim=-1).values)
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        s = s * torch.exp(m - m_safe) + a.sub_(m_safe[..., None]).exp_().sum(dim=-1)
-        m = m_new
-    m = torch.where(torch.isfinite(m), m, 0.0)
-    return torch.log(s) + m
+    over column chunks with a running max."""
+    u_kn = _as_tensor(u_kn)
+    m, acc = _lse_init(u_kn.shape[:-1], logden_n.dtype, u_kn.device)
+    for c0, c1, u_c in stream_columns(u_kn):
+        m, acc = _lse_add(m, acc, -logden_n[..., None, c0:c1] - u_c)
+    return _lse_end(m, acc)
 
 
-def core_stats(u_kn, N_k, f_k):
-    """One fused pass pair producing (objective, gradient, f_sci).
+def _core_pass(u_kn, N_k, f_k, dev, rows=None):
+    """(logden_n, lognum_k) in one pass over u's column chunks (of the rows
+    ``rows`` when given, which N_k and f_k already follow): each chunk's
+    log-denominators, then its share of :func:`_log_numerator_k`."""
+    lead = u_kn.shape[:-2]
+    logden = torch.empty(lead + u_kn.shape[-1:], dtype=N_k.dtype, device=dev)
+    m, acc = _lse_init(lead + N_k.shape[-1:], N_k.dtype, dev)
+    for c0, c1, u_c in stream_columns(u_kn, dev, rows=rows):
+        ld = _logden_direct(u_c, N_k, f_k)
+        logden[..., c0:c1] = ld
+        m, acc = _lse_add(m, acc, -ld[..., None, :] - u_c)
+    return logden, _lse_end(m, acc)
+
+
+def core_stats(u_kn, N_k, f_k, device=None, rows=None):
+    """One fused pass producing (objective, gradient, f_sci).
 
     obj   = sum_n logden_n - N_k . f_k
     grad  = -N_k (1 - exp(f_k + lognum_k))          [Eq. C6]
     f_sci = -lognum_k                                [Eq. C3]
+
+    ``rows`` restricts the pass to those rows of u_kn (N_k and f_k then
+    hold theirs only); ``device`` is where it runs (:func:`stream_columns`).
     """
-    u_kn = _as_tensor(u_kn)
-    N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
-    logden = log_denominator_n(u_kn, N_k, f_k)
-    lognum = _log_numerator_k(u_kn, logden)
+    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    logden, lognum = _core_pass(u_kn, N_k, f_k, dev, rows)
     obj = logden.sum(dim=-1) - f_k @ N_k
     grad = -N_k * (1.0 - torch.exp(f_k + lognum))
     return obj, grad, -lognum
 
 
-def self_consistent_update(u_kn, N_k, f_k, states_with_samples=None):
+def self_consistent_update(u_kn, N_k, f_k, states_with_samples=None, device=None):
     """Improved f_k guess via Eq. C3 (reference mbar_solvers.py:206-257).
 
-    Only states in ``states_with_samples`` feed the denominator when given.
+    Only states in ``states_with_samples`` feed the denominator when given
+    (each chunk gathers those rows).  One pass over u_kn on ``device``.
     """
-    u_kn = _as_tensor(u_kn)
-    N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
+    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    rows = None
     if states_with_samples is not None:
-        sel = torch.as_tensor(np.asarray(states_with_samples), device=u_kn.device)
-        u_kn = u_kn.index_select(0, sel)
-        N_k = N_k[sel]
-        f_k = f_k[sel]
-    return -_log_numerator_k(u_kn, log_denominator_n(u_kn, N_k, f_k))
+        rows = np.asarray(states_with_samples)
+        sel = torch.as_tensor(rows, device=dev)
+        N_k, f_k = N_k[sel], f_k[sel]
+    return -_core_pass(u_kn, N_k, f_k, dev, rows)[1]
 
 
-def mbar_gradient(u_kn, N_k, f_k):
+def mbar_gradient(u_kn, N_k, f_k, device=None, rows=None):
     """Gradient of the MBAR objective, Eq. C6 (reference mbar_solvers.py:260-292)."""
-    return core_stats(u_kn, N_k, f_k)[1]
+    return core_stats(u_kn, N_k, f_k, device, rows)[1]
 
 
 def mbar_objective(u_kn, N_k, f_k):
     """MBAR objective (reference mbar_solvers.py:295-339)."""
-    u_kn = _as_tensor(u_kn)
-    N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
+    u_kn, N_k, f_k, _dev = _prepare(u_kn, N_k, f_k)
     return log_denominator_n(u_kn, N_k, f_k).sum(dim=-1) - f_k @ N_k
 
 
@@ -218,19 +389,17 @@ def _weights(u_c, f_k, logden_c):
 
 
 def mbar_w_nk_gram(u_kn, N_k, f_k):
-    """(W^T W, colsum W) in u's dtype, streamed over column chunks.
+    """(W^T W, colsum W) in u's dtype, in one pass over column chunks.
 
     W[n, k] = exp(f_k - u_kn[k, n] - logden_n).  These are the only
     aggregates the Hessian (Eq. C9) needs.
     """
-    u_kn = _as_tensor(u_kn)
+    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k)
     K = u_kn.shape[-2]
-    f_k = _like(f_k, u_kn)
-    logden = log_denominator_n(u_kn, N_k, f_k)
-    gram = torch.zeros(u_kn.shape[:-1] + (K,), dtype=u_kn.dtype, device=u_kn.device)
-    colsum = torch.zeros(u_kn.shape[:-1], dtype=u_kn.dtype, device=u_kn.device)
-    for s, e in _col_chunks(u_kn):
-        w = _weights(u_kn[..., s:e], f_k, logden[..., s:e])
+    gram = torch.zeros(u_kn.shape[:-1] + (K,), dtype=N_k.dtype, device=dev)
+    colsum = torch.zeros(u_kn.shape[:-1], dtype=N_k.dtype, device=dev)
+    for _s, _e, u_c in stream_columns(u_kn):
+        w = _weights(u_c, f_k, _logden_direct(u_c, N_k, f_k))
         gram += _matmul(w, w.mT)
         colsum += w.sum(dim=-1)
     return gram, colsum
@@ -238,8 +407,7 @@ def mbar_w_nk_gram(u_kn, N_k, f_k):
 
 def mbar_hessian(u_kn, N_k, f_k):
     """Hessian of the MBAR objective, Eq. C9 (reference mbar_solvers.py:395-436)."""
-    u_kn = _as_tensor(u_kn)
-    N_k = _like(N_k, u_kn)
+    u_kn, N_k, f_k, _dev = _prepare(u_kn, N_k, f_k)
     gram, colsum = mbar_w_nk_gram(u_kn, N_k, f_k)
     H = gram * N_k[None, :] * N_k[:, None]
     H -= torch.diag_embed(colsum * N_k)
@@ -254,18 +422,27 @@ def mbar_W_nk(u_kn, N_k, f_k):
     return _weights(u_kn, f_k, log_denominator_n(u_kn, N_k, f_k)).T
 
 
-def mbar_log_W_nk(u_kn, N_k, f_k):
+def _log_w_blocks(u_kn, N_k, f_k, device=None):
+    """Yield (s, e, block): the (K, e - s) normalized log-weights
+    f_k - u_kn - logden_n of each column chunk, on ``device`` (default:
+    u's own), in one pass."""
+    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    for s, e, u_c in stream_columns(u_kn, dev):
+        yield s, e, (f_k[:, None] - u_c).sub_(_logden_direct(u_c, N_k, f_k)[None, :])
+
+
+def mbar_log_W_nk(u_kn, N_k, f_k, device=None):
     """Normalized log-weights f_k - u_kn - logden_n, Eq. 9, as a contiguous
-    (N, K) tensor on u's device (reference mbar_solvers.py:439-476).  Each
-    column chunk's (K, nc) block is written transposed into the output, so
-    the only full-size allocation is the result itself."""
-    u_kn = _as_tensor(u_kn)
-    K, N = u_kn.shape
-    f_k = _like(f_k, u_kn)
-    logden = log_denominator_n(u_kn, N_k, f_k)
-    out = torch.empty((N, K), dtype=u_kn.dtype, device=u_kn.device)
-    for s, e in _col_chunks(u_kn):
-        out[s:e] = (f_k[:, None] - u_kn[:, s:e]).sub_(logden[None, s:e]).T
+    (N, K) tensor on ``device`` (default: u's own; reference
+    mbar_solvers.py:439-476).  Each column chunk's (K, nc) block
+    (:func:`_log_w_blocks`) is written transposed into the output, so the
+    only full-size allocation is the result itself."""
+    u = _as_tensor(u_kn)
+    dt, dev = _work_on(u, device)
+    K, N = u.shape
+    out = torch.empty((N, K), dtype=dt, device=dev)
+    for s, e, blk in _log_w_blocks(u, N_k, f_k, dev):
+        out[s:e] = blk.T
     return out
 
 
@@ -283,8 +460,7 @@ def gram_f32_acc64(u_kn32, N_k32, f_k32, c32=None):
     logden = log_denominator_n(u_kn32, N_k32, f_k32)
     gram = torch.zeros((K, K), dtype=torch.float64, device=dev)
     colsum = torch.zeros(K, dtype=torch.float64, device=dev)
-    for s, e in _col_chunks(u_kn32):
-        u_c = u_kn32[:, s:e]
+    for s, e, u_c in stream_columns(u_kn32):
         w = _weights(u_c, f_k32, logden[s:e])
         # W columns normalize to 1 regardless of u, so sentinel pad
         # columns would be phantom weight-1 samples: zero them.
@@ -296,15 +472,15 @@ def gram_f32_acc64(u_kn32, N_k32, f_k32, c32=None):
 
 
 def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
-                            extra_rows=None, observable=None):
+                            extra_rows=None, observable=None, device=None):
     """(W^T W, colsum W, row-check stats) in one streamed f64 pass.
 
     The aggregates the covariance estimators (Eq. D4/D5, Kong 2003) and the
     reference's ``check_w_normalized`` need: Gram and per-state column sums,
     plus (bad row count, first bad row index, its row sum) for the
     sum_k N_k W_nk = 1 check, without an N-sized host array.  Computes in
-    u's dtype (float64 on the card: the JAX package's float32 here was a
-    TPU-only choice).
+    the work's dtype on ``device`` (default: u's own; float64 on the card:
+    the JAX package's float32 here was a TPU-only choice).
 
     The augmented-state expectations (``MBAR._expectations_streamed``'s pass
     B) ride the same chunk loop:
@@ -319,10 +495,12 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
       (e - s,) row shared by every state or a (K, e - s) slab (row k with
       state k).  The pass then also returns ``(M1, M2, cA)`` with
       M1 = W (A o W)^T, M2 = (A o W)(A o W)^T and cA = sum_n (A o W).
+
+    The callbacks receive u's chunks on ``device``.
     """
-    N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
+    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    dt = N_k.dtype
     K, N = u_kn.shape
-    dev = u_kn.device
     N_s, f_s = N_k, f_k
     if sampled is not None:
         sampled = torch.as_tensor(sampled, device=dev)
@@ -333,11 +511,10 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
     fidx = big.clone()
     fval = torch.zeros((), dtype=torch.float64, device=dev)
     if observable is not None:
-        m1 = torch.zeros((K, K), dtype=u_kn.dtype, device=dev)
+        m1 = torch.zeros((K, K), dtype=dt, device=dev)
         m2 = torch.zeros_like(m1)
-        c_a = torch.zeros(K, dtype=u_kn.dtype, device=dev)
-    for s, e in _col_chunks(u_kn):
-        u_c = u_kn[:, s:e]
+        c_a = torch.zeros(K, dtype=dt, device=dev)
+    for s, e, u_c in stream_columns(u_kn, dev):
         logden = _logden_direct(u_c if sampled is None else u_c.index_select(0, sampled), N_s, f_s)
         w = _weights(u_c, f_k, logden)
         w.masked_fill_(u_c >= _PAD_THRESHOLD, 0.0)  # pad columns: phantom samples
@@ -351,8 +528,8 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
         if extra_rows is not None:
             w = torch.cat([w, extra_rows(s, e, u_c, logden)])
         if gram is None:
-            gram = torch.zeros((w.shape[0],) * 2, dtype=u_kn.dtype, device=dev)
-            colsum = torch.zeros(w.shape[0], dtype=u_kn.dtype, device=dev)
+            gram = torch.zeros((w.shape[0],) * 2, dtype=dt, device=dev)
+            colsum = torch.zeros(w.shape[0], dtype=dt, device=dev)
         gram += _matmul(w, w.T)
         colsum += w.sum(dim=1)
         bad = torch.abs(rowsum - 1.0) > tolerance
@@ -379,7 +556,7 @@ def precondition_u_kn(u_kn, N_k, f_k):
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     c_shift = torch.dot(N_k, f_k) / N_k.sum()
     out = torch.empty_like(u_kn)
-    for s, e in _col_chunks(u_kn):
-        sl = u_kn[..., s:e] - u_kn[..., s:e].min(dim=-2).values[..., None, :]
+    for s, e, u_c in stream_columns(u_kn):
+        sl = u_c - u_c.min(dim=-2).values[..., None, :]
         out[..., s:e] = sl.add_((_logden_direct(sl, N_k, f_k) - c_shift)[..., None, :])
     return out

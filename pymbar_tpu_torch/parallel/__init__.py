@@ -14,6 +14,7 @@ from pymbar_tpu_torch.parallel.sharding import (
     default_mesh,
     mesh_2d,
     shard_dd_planes,
+    stream_shard_planes,
     shard_u_kn,
     shard_u_kn_2d,
     sharded2d_core_stats,
@@ -38,6 +39,7 @@ __all__ = [
     "sharded_log_denominator",
     "sharded_solve_mbar",
     "shard_dd_planes",
+    "stream_shard_planes",
     "sharded_fused_lognum_dd",
     "sharded_bootstrap_polish_dd",
     "sharded_solve_mbar_dd",

@@ -49,6 +49,7 @@ from pymbar_tpu_torch.ops.mbar_core import (
     _weights,
     gram_f32_acc64,
     log_denominator_n,
+    self_consistent_update,
 )
 from pymbar_tpu_torch.ops.wsum import _PAD_M, wsum_dd
 from pymbar_tpu_torch.ops.wsum_split import column_shift, denom_sums_dd, wsum_denom_dd
@@ -72,8 +73,8 @@ from pymbar_tpu_torch.solvers_large import (
     _newton_factor,
     _polish_loop,
     _use_resident_th,
-    dev_split_planes,
     polish_to_host,
+    _split_into,
 )
 from pymbar_tpu_torch.utils import ParameterError
 
@@ -95,6 +96,7 @@ __all__ = [
     "sharded2d_gram",
     "sharded2d_solve_mbar",
     "shard_dd_planes",
+    "stream_shard_planes",
     "sharded_fused_lognum_dd",
     "sharded_wsum_dd",
     "sharded_bootstrap_polish_dd",
@@ -692,6 +694,33 @@ def shard_dd_planes(u_hi, u_lo, mesh):
     return hi, lo, n_pad
 
 
+def stream_shard_planes(u_kn, mesh, rows=None):
+    """The double-word split of u_kn[rows] (every row by default) written
+    straight into each shard's (hi, lo) planes, one streamed column chunk
+    at a time (:func:`pymbar_tpu_torch.solvers_large._split_into`): shard i
+    holds padded columns [i w, (i + 1) w) on mesh device i, pad columns
+    as in :func:`shard_dd_planes`.  A host-resident u_kn (a CPU tensor, a
+    CUDA mesh) is uploaded chunk by chunk; no K x N float64 copy exists on
+    the host or a card.  Bit-identical to :func:`shard_dd_planes` of
+    ``dev_split_planes(u_kn[rows])``.  Returns (hi_shards, lo_shards)."""
+    u = u_kn if torch.is_tensor(u_kn) else _as_tensor(u_kn, torch.float64)
+    K = u.shape[0] if rows is None else len(rows)
+    N = u.shape[1]
+    w = -(-N // len(mesh.devices))
+    his, los = [], []
+    for i, dev in enumerate(mesh.devices):
+        uh = torch.empty((K, w), dtype=torch.float32, device=dev)
+        ul = torch.empty_like(uh)
+        n = max(0, min(N, (i + 1) * w) - i * w)
+        uh[:, n:] = _PAD_U
+        ul[:, n:] = 0.0
+        if n:
+            _split_into(u, uh, ul, rows, start=i * w)
+        his.append(uh)
+        los.append(ul)
+    return his, los
+
+
 def _dd_combine_partials(parts, mesh):
     """Per-shard (hi, lo) partial sums merged in f64 on the first device, in
     mesh order.  Returns the float64 sum."""
@@ -966,8 +995,21 @@ def sharded_solve_mbar_dd(
     """
     if mesh is None:
         mesh = default_mesh()
+    u_hi_s, u_lo_s, _ = shard_dd_planes(u_hi, u_lo, mesh)
+    return _sharded_solve_mbar_dd_shards(
+        u_hi_s, u_lo_s, N_k, f_k=f_k, mesh=mesh, tol=tol, f32_tol=f32_tol,
+        f32_maxiter=f32_maxiter, polish_maxiter=polish_maxiter, gamma=gamma,
+        return_state=return_state,
+    )
+
+
+def _sharded_solve_mbar_dd_shards(u_hi_s, u_lo_s, N_k, f_k, mesh, tol, f32_tol=1.0e-4,
+                                  f32_maxiter=40, polish_maxiter=12, gamma=1.0,
+                                  return_state=False):
+    """:func:`sharded_solve_mbar_dd` on planes already in shards (as
+    :func:`shard_dd_planes` or :func:`stream_shard_planes` lay them out)."""
     dev0 = mesh.devices[0]
-    K = u_hi.shape[0]
+    K = u_hi_s[0].shape[0]
     N_k_host = np.asarray(N_k, dtype=np.int64)
     N_real = int(N_k_host.sum())
     N_k64 = _vec(np.asarray(N_k, dtype=np.float64), torch.float64, dev0)
@@ -976,8 +1018,6 @@ def sharded_solve_mbar_dd(
     if f_k is not None:
         f64 = _vec(np.asarray(f_k, dtype=np.float64), torch.float64, dev0)
     f64 = f64 - f64[0]
-
-    u_hi_s, u_lo_s, _ = shard_dd_planes(u_hi, u_lo, mesh)
 
     def f32_adaptive(u_s, N32, f_start):
         """Host-orchestrated float32 adaptive loop on sharded hi planes."""
@@ -1273,12 +1313,13 @@ def _sharded_solve_mbar_for_all_states(
     solve's result dicts: the MBAR class's mesh front door.
 
     Solves the sampled states by :func:`sharded_solve_mbar_dd` on the dd
-    split of a private copy of their rows (min-shifted in place, and freed
-    once split), then fills empty states with one self-consistent update
-    over all K states on the +inf-padded float64 u_kn, and re-pins f_0 = 0.
-    ``u_kn``: float64 tensor (split on its own device, the shards copied to
-    the mesh) or numpy (split on the host).  Returns (f_k ndarray, list of
-    the solve's result dict), as the single-device
+    split of their rows, streamed column chunk by column chunk straight
+    into each shard's planes (:func:`stream_shard_planes`), then fills
+    empty states with one self-consistent pass over all K states on the
+    first mesh device (streamed too), and re-pins f_0 = 0.  ``u_kn``: a
+    float64 tensor (a CPU tensor for a CUDA mesh stays in host memory: its
+    chunks are uploaded one at a time) or numpy (a CPU tensor then).  Returns
+    (f_k ndarray, list of the solve's result dict), as the single-device
     :func:`pymbar_tpu_torch.solvers._solve_mbar_for_all_states`.
 
     With ``bootstrap_counts`` (a (B, N) resample-multiplicity matrix; every
@@ -1289,7 +1330,7 @@ def _sharded_solve_mbar_for_all_states(
     """
     if mesh is None:
         mesh = default_mesh()
-    u = _as_tensor(u_kn, torch.float64)
+    u = u_kn if torch.is_tensor(u_kn) else _as_tensor(u_kn, torch.float64)
     N_k = np.asarray(N_k, dtype=np.float64)
     f_k = np.array(f_k, dtype=np.float64, copy=True)
     sws = np.asarray(states_with_samples)
@@ -1302,18 +1343,12 @@ def _sharded_solve_mbar_for_all_states(
 
     results = []
     if len(sws) > 1:
-        u_sub = u.index_select(0, torch.as_tensor(sws, device=u.device))
-        # Per-sample shift (the MBAR equations are invariant under it) so the
-        # dd split sees small values; in place on the private copy, so no
-        # second K x N temporary exists.
-        u_sub -= u_sub.amin(dim=0)[None, :]
-        uh, ul = dev_split_planes(u_sub)
-        del u_sub
-        f_sub, info = sharded_solve_mbar_dd(
-            uh, ul, N_k[sws], f_k=f_k[sws] - f_k[sws][0], mesh=mesh, tol=tol,
+        uh_s, ul_s = stream_shard_planes(u, mesh, None if len(sws) == len(N_k) else sws)
+        f_sub, info = _sharded_solve_mbar_dd_shards(
+            uh_s, ul_s, N_k[sws], f_k[sws] - f_k[sws][0], mesh, tol,
             return_state=bootstrap_counts is not None,
         )
-        del uh, ul
+        del uh_s, ul_s
         if not info["converged"]:
             logger.warning(
                 "sharded MBAR solve did not converge to within tolerance "
@@ -1334,11 +1369,10 @@ def _sharded_solve_mbar_for_all_states(
         f_k[sws] = 0.0
 
     if len(sws) < len(N_k):
-        # Empty-state fill: one SC update over all K states (empty states
-        # carry N_k = 0 and drop out of the denominator exactly).
-        u_all, _ = shard_u_kn(u, mesh)
-        _, _, f_sci = sharded_core_stats(u_all, N_k, f_k, mesh)
-        f_k = f_sci.cpu().numpy()
+        # Empty-state fill: one self-consistent pass over all K states
+        # (empty states carry N_k = 0 and drop out of the denominator
+        # exactly), u's column chunks streamed to the first mesh device.
+        f_k = self_consistent_update(u, N_k, f_k, device=mesh.devices[0]).cpu().numpy()
     return f_k - f_k[0], results
 
 

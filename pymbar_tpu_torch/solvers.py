@@ -35,6 +35,7 @@ import torch
 from pymbar_tpu_torch.ops.mbar_core import (
     _CHUNK_BYTES,
     _as_tensor,
+    _work_on,
     core_stats,
     mbar_gradient,
     mbar_hessian,
@@ -42,9 +43,10 @@ from pymbar_tpu_torch.ops.mbar_core import (
     mbar_W_nk,
     precondition_u_kn,
     self_consistent_update,
+    u_kn_on,
     validate_inputs,
 )
-from pymbar_tpu_torch.utils import ParameterError, check_w_normalized
+from pymbar_tpu_torch.utils import ParameterError, check_w_normalized, ensure_type
 
 logger = logging.getLogger(__name__)
 
@@ -105,15 +107,16 @@ _ADAPTIVE_ONLY = ("min_sc_iter", "print_warning", "gamma", "verbose", "nr_method
 
 def target_device(device=None):
     """Where an entry point places a numpy input: ``device`` when given,
-    else the CUDA card.  Without a card, and with no device asked for, it
-    raises :class:`ParameterError`: nothing falls back to the CPU unasked."""
-    if device is not None:
+    else the CUDA card.  Without a card, with no device or a CUDA one asked
+    for, it raises :class:`ParameterError`: nothing falls back to the CPU
+    unasked."""
+    if device is not None and torch.device(device).type != "cuda":
         return torch.device(device)
     if not torch.cuda.is_available():
         raise ParameterError(
             'no CUDA device is available: pass device="cpu" to run on the CPU'
         )
-    return torch.device("cuda")
+    return torch.device("cuda") if device is None else torch.device(device)
 
 
 # -----------------------------------------------------------------------------
@@ -581,6 +584,8 @@ def solve_mbar_once(
     tol=1e-12,
     continuation=None,
     options=None,
+    device=None,
+    rows=None,
 ):
     """Solve MBAR once with a single method, f_0 pinned to zero.
 
@@ -593,22 +598,35 @@ def solve_mbar_once(
     scipy.optimize.minimize method, or a scipy.optimize.root method
     ("hybr"/"lm") with the analytic Jacobian.
 
+    ``rows`` solves the rows ``rows`` of ``u_kn_nonzero`` (N_k and f_k hold
+    theirs only), ``device`` says where (default: u's own).  The dd stage
+    streams those rows' column chunks into its planes; every other method
+    reads the matrix each iteration and gathers it onto ``device`` whole
+    (:func:`pymbar_tpu_torch.ops.mbar_core.u_kn_on`), freed on return.
+
     Returns (f_k_nonzero ndarray, results dict).
     """
     del continuation  # consumed by solve_mbar; accepted for **solver splat
     options = dict(options or {})
-    u_kn_nonzero, N_k_nonzero, f_k_nonzero = validate_inputs(
-        u_kn_nonzero, N_k_nonzero, f_k_nonzero
-    )
+    if method == "dd":
+        u_kn_nonzero = _as_tensor(u_kn_nonzero)
+        K = u_kn_nonzero.shape[0] if rows is None else len(rows)
+        N_k_nonzero = ensure_type(N_k_nonzero, "float", 1, "N_k", shape=(K,), warn_on_cast=False)
+        f_k_nonzero = ensure_type(f_k_nonzero, "float", 1, "f_k", shape=(K,))
+    else:
+        u_kn_nonzero, N_k_nonzero, f_k_nonzero = validate_inputs(
+            u_kn_on(u_kn_nonzero, device, rows), N_k_nonzero, f_k_nonzero
+        )
     f_k_nonzero = f_k_nonzero - f_k_nonzero[0]
 
     if method == "dd":
-        # Two-phase double-word solve.  The split happens on the matrix's
-        # own device and applies the per-sample min shift (gradients are
-        # shift-invariant; the dd solver never consumes the objective).
-        from pymbar_tpu_torch.solvers_large import dev_split_planes, solve_mbar_dd
+        # Two-phase double-word solve.  The split streams the rows' column
+        # chunks onto ``device`` and applies the per-sample min shift
+        # (gradients are shift-invariant; the dd solver never consumes the
+        # objective).
+        from pymbar_tpu_torch.solvers_large import solve_mbar_dd, stream_split_planes
 
-        uh, ul = dev_split_planes(u_kn_nonzero)
+        uh, ul = stream_split_planes(u_kn_nonzero, device, rows)
         opts = {
             k: options[k]
             for k in ("f32_tol", "f32_maxiter", "polish_maxiter", "gamma")
@@ -700,13 +718,15 @@ def solve_mbar_once(
     return np.asarray(f_k_nonzero), dict(results)
 
 
-def solve_mbar(u_kn_nonzero, N_k_nonzero, f_k_nonzero, solver_protocol=None):
+def solve_mbar(u_kn_nonzero, N_k_nonzero, f_k_nonzero, solver_protocol=None, device=None,
+               rows=None):
     """Run a chain of solvers, keeping the best-gradient-norm result on failure.
 
     Mirrors reference mbar_solvers.py:886-974: each protocol stage is tried
     in order; a successful stage short-circuits; on total failure the stage
     with the smallest final gradient norm wins; stages with
-    ``continuation=True`` hand their f_k to the next stage.
+    ``continuation=True`` hand their f_k to the next stage.  ``device`` and
+    ``rows`` as in :func:`solve_mbar_once`.
     Returns (f_k_nonzero, list of per-stage result dicts).
     """
     if solver_protocol is None:
@@ -720,18 +740,14 @@ def solve_mbar(u_kn_nonzero, N_k_nonzero, f_k_nonzero, solver_protocol=None):
 
     for solver in solver_protocol:
         f_k_nonzero_result, results = solve_mbar_once(
-            u_kn_nonzero, N_k_nonzero, f_k_nonzero, **solver
+            u_kn_nonzero, N_k_nonzero, f_k_nonzero, **solver, device=device, rows=rows
         )
         all_fks.append(f_k_nonzero_result)
         if "gnorm" in results.get("info", {}):
             # the dd stage certified its own gradient norm
             all_gnorms.append(float(results["info"]["gnorm"]))
         else:
-            g = mbar_gradient(
-                u_t,
-                torch.as_tensor(np.asarray(N_k_nonzero), dtype=u_t.dtype, device=u_t.device),
-                torch.as_tensor(f_k_nonzero_result, dtype=u_t.dtype, device=u_t.device),
-            )
+            g = mbar_gradient(u_t, N_k_nonzero, f_k_nonzero_result, device=device, rows=rows)
             all_gnorms.append(float(torch.linalg.norm(g)))
         all_results.append(results)
 
@@ -781,10 +797,21 @@ def solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protoc
     return _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protocol)[0]
 
 
-def _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protocol):
+def _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protocol,
+                               device=None):
     """:func:`solve_mbar_for_all_states` returning (f_k ndarray, list of
-    per-stage result dicts): the MBAR class's front door."""
+    per-stage result dicts): the MBAR class's front door.
+
+    ``device``: where the work runs (default: u's own).  A CPU u_kn with a
+    CUDA device stays in host memory under a dd-only protocol (the split
+    and the empty-state fill stream its column chunks); any other protocol
+    reads the matrix every iteration, so it is uploaded whole for the
+    solve and freed on return."""
     u_kn = _as_tensor(u_kn)
+    dev = _work_on(u_kn, device)[1]
+    dd_only = all(s.get("method") == "dd" for s in (solver_protocol or ()))
+    if not dd_only:
+        u_kn = u_kn_on(u_kn, dev)
     N_k = np.asarray(N_k)
     f_k = np.array(f_k, dtype=np.float64, copy=True)
     states_with_samples = np.asarray(states_with_samples)
@@ -796,24 +823,22 @@ def _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_proto
         all_sampled = len(states_with_samples) == len(N_k) and np.array_equal(
             states_with_samples, np.arange(len(N_k))
         )
-        u_sel = u_kn if all_sampled else u_kn.index_select(
-            0, torch.as_tensor(states_with_samples, device=u_kn.device)
-        )
         f_k_nonzero, all_results = solve_mbar(
-            u_sel,
+            u_kn,
             N_k[states_with_samples],
             f_k[states_with_samples],
             solver_protocol=solver_protocol,
+            device=dev,
+            rows=None if all_sampled else states_with_samples,
         )
 
     f_k[states_with_samples] = np.asarray(f_k_nonzero)
 
     # With no empty states and a dd-only protocol the SC fill is pure cost:
     # f already satisfies the SC equations past the dd noise floor.
-    dd_only = all(s.get("method") == "dd" for s in (solver_protocol or ()))
     if dd_only and len(states_with_samples) == len(N_k):
         return f_k - f_k[0], all_results
-    f_k = self_consistent_update(u_kn, N_k.astype(np.float64), f_k).cpu().numpy()
+    f_k = self_consistent_update(u_kn, N_k.astype(np.float64), f_k, device=dev).cpu().numpy()
     return f_k - f_k[0], all_results
 
 

@@ -35,7 +35,15 @@ import numpy as np
 import torch
 
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
-from pymbar_tpu_torch.ops.mbar_core import _CHUNK_BYTES, _as_tensor, _matmul, gram_f32_acc64
+from pymbar_tpu_torch.ops.mbar_core import (
+    _CHUNK_BYTES,
+    _as_tensor,
+    _matmul,
+    _same_device,
+    _work_on,
+    gram_f32_acc64,
+    stream_columns,
+)
 from pymbar_tpu_torch.ops.wsum import wsum_dd
 from pymbar_tpu_torch.solvers import _adaptive_while, target_device
 
@@ -46,6 +54,7 @@ __all__ = [
     "split_u_kn_streamed",
     "host_split_planes",
     "dev_split_planes",
+    "stream_split_planes",
     "polish_to_host",
     "bootstrap_polish_dd",
     "solve_mbar_dd_bootstrap",
@@ -98,6 +107,46 @@ def dev_split_planes(u64):
         uh[:, s:e] = hi
         ul[:, s:e] = blk.sub_(hi.to(torch.float64)).to(torch.float32)
     return uh, ul
+
+
+def stream_split_planes(u_kn, device=None, rows=None):
+    """:func:`dev_split_planes` of u_kn[rows] (every row by default), with
+    the (hi, lo) planes on ``device`` (default: u's own) and filled column
+    chunk by column chunk from
+    :func:`pymbar_tpu_torch.ops.mbar_core.stream_columns`.
+
+    A CPU u_kn with a CUDA ``device`` stays in host memory: its chunks are
+    uploaded through pinned staging and split on the card, so the card
+    holds the planes and chunk-sized temporaries, never the float64
+    matrix.  The shift is per column, so each chunk's own column min is
+    the shift, and the planes are bit-identical to
+    ``dev_split_planes(u_kn[rows])``; a float32 or non-contiguous u_kn is
+    cast one chunk at a time.
+    """
+    u = _as_tensor(u_kn)
+    dev = _work_on(u, device)[1]
+    K = u.shape[0] if rows is None else len(rows)
+    uh = torch.empty((K, u.shape[1]), dtype=torch.float32, device=dev)
+    ul = torch.empty_like(uh)
+    _split_into(u, uh, ul, rows)
+    return uh, ul
+
+
+def _split_into(u_kn, uh, ul, rows=None, start=0):
+    """Write the double-word split of u_kn[rows, start:start + n] into
+    uh[:, :n] and ul[:, :n] on their device, n = min(uh's width, the
+    columns left from ``start``), one streamed column chunk at a time (see
+    :func:`stream_split_planes`)."""
+    stop = min(u_kn.shape[1], start + uh.shape[1])
+    # a chunk from another device is a fresh float64 copy (the staging
+    # buffer of a host-resident u_kn): the split may overwrite it
+    own = not _same_device(u_kn.device, uh.device)
+    for s, e, u_c in stream_columns(u_kn, uh.device, rows=rows, start=start, stop=stop):
+        blk = u_c if own else u_c.to(torch.float64, copy=True)
+        blk.sub_(blk.amin(dim=0)[None, :])
+        hi, lo = uh[:, s - start:e - start], ul[:, s - start:e - start]
+        hi.copy_(blk)
+        lo.copy_(blk.sub_(hi))  # hi widens exactly: the f64 residual of the pair
 
 
 def host_split_planes(u_np):
@@ -819,8 +868,10 @@ def solve_mbar_dd_bootstrap(u_kn, N_k, f_k, counts, tol=1.0e-12, options=None, v
 
     The counterpart of :func:`pymbar_tpu.solvers_large.solve_mbar_dd_bootstrap`,
     the front door of ``MBAR(u_kn, N_k, n_bootstraps=B)`` on the dd route:
-    the planes are split once (on u_kn's device for a tensor, on the host
-    for numpy, then moved to ``device``), the base problem solves with
+    the planes are split once (:func:`stream_split_planes`: on ``device``,
+    by default a tensor's own device and the card for numpy; a CPU tensor
+    with a CUDA ``device`` streams its column chunks from host memory),
+    the base problem solves with
     :func:`solve_mbar_dd`, and every replicate rides
     :func:`bootstrap_polish_dd` on the same planes with the base chord
     factor.  All states must have samples.  Returns (f_k, f_boots, n_fail,
@@ -828,11 +879,8 @@ def solve_mbar_dd_bootstrap(u_kn, N_k, f_k, counts, tol=1.0e-12, options=None, v
     ``bootstrap_n_at_floor`` and ``bootstrap_n_tol_converged``.
     """
     options = dict(options or {})
-    if torch.is_tensor(u_kn):
-        uh, ul = dev_split_planes(u_kn)
-    else:
-        dev = target_device(device)
-        uh, ul = (torch.as_tensor(p, device=dev) for p in host_split_planes(u_kn))
+    dev = u_kn.device if torch.is_tensor(u_kn) and device is None else target_device(device)
+    uh, ul = stream_split_planes(u_kn, dev)
     f_k = np.asarray(f_k, dtype=np.float64)
     f_sol, info = solve_mbar_dd(
         uh, ul, N_k, f_k=f_k - f_k[0], tol=tol,
