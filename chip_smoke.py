@@ -229,20 +229,46 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    solver and by a streamed f64 evaluation), |z| < 6, the peak below the
    card's memory.
 
+12. The public surface as users meet it, with PYMBAR_TPU_TORCH_DEVICE
+   unset (the phase fails if it is set; only its CPU reruns set it, and
+   restore it after).  (a) The six synthetic examples/*.py, unchanged, with
+   sys.modules["pymbar_tpu"] pointed at pymbar_tpu_torch for each run:
+   each on the card (its wall; the CUDA allocation count must grow during
+   it), then again on the CPU under PYMBAR_TPU_TORCH_DEVICE=cpu; the text
+   must match and every number printed on the card lie within one unit of
+   the last printed digit of the CPU run (NaN only against NaN).  The CPU
+   port is held against pymbar_tpu in the CPU tests, so the card is held
+   against the JAX package through it.  (b) doctest.testmod of the port's
+   mbar, fes and the four testsystems modules: 0 failures.  (c) The
+   README's port quickstart (|z| < 6 against the analytic free energies
+   and means) and every python block of docs/torch_port.md, in page order;
+   its card block, 64 oscillator states x 16,384 samples (537 MB of f64):
+   |z| < 6, K1 launched, gradient norm / N <= 1e-11 by the solver and by a
+   float64 evaluation, and the host-resident solve's f_k within 1e-12 of
+   the resident one.
+
 Then the card, the kernels line (K1's launches: phase 2's MBAR, phase 9
-(a)'s and phase 11's runs; the shift's, K3's and K4's: phase 3's MBAR and
-phase 10 (b)'s solve) and {"ok": true, "device": {...}} close the output.  Without a CUDA card, or without the repository beside this file,
-it exits non-zero and prints no result.  Imports nothing of JAX.
+(a)'s, phase 11's and phase 12's runs; the shift's, K3's and K4's: phase
+3's MBAR and phase 10 (b)'s solve) and {"ok": true, "device": {...}} close
+the output.  Without a CUDA card, or without the repository beside this
+file, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
 import concurrent.futures
+import contextlib
+import doctest
+import importlib
+import importlib.util
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -278,6 +304,16 @@ MESH_DF_TOL = 5.0e-10
 # float64.  Operations are counted as one per add, subtract, max, multiply,
 # divide and exp (an exp costs ~20 FP64 instructions, so the op bound is an
 # underestimate; it stays below the byte bound either way).
+# Phase 12: the examples that run without data files, the process default
+# device's variable, a printed number, and the marker of a docs block that
+# needs a card.
+EXAMPLES = ("harmonic_oscillators.py", "alchemical_free_energy.py", "heat_capacity.py",
+            "umbrella_sampling_fes.py", "constant_force_optical_trap.py",
+            "parallel_tempering_2dfes.py")
+DEVICE_VAR = "PYMBAR_TPU_TORCH_DEVICE"
+NUMBER = re.compile(r"[-+]?(?:nan|inf|(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?)", re.IGNORECASE)
+CARD_MARK = "# needs a CUDA card"
+
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
@@ -1471,6 +1507,166 @@ def phase11(torch, np, flag_seed, flag, mesh4, single5, ex7):
     return k1_total
 
 
+def last_digit_unit(token):
+    """One unit of the last printed digit of a number token."""
+    mantissa, _, exponent = token.lower().partition("e")
+    return 10.0 ** (int(exponent or 0) - len(mantissa.partition(".")[2]))
+
+
+def printed_mismatches(out, ref):
+    """Where ``out`` does not print what ``ref`` prints: ["text"] when the
+    text around the numbers differs, else the (out, ref) number pairs
+    more than one unit of the last digit either printed apart (NaN must
+    meet NaN)."""
+    import math
+
+    if NUMBER.sub("#", out) != NUMBER.sub("#", ref):
+        return ["text"]
+    bad = []
+    for a, b in zip(NUMBER.findall(out), NUMBER.findall(ref)):
+        x, y = float(a), float(b)
+        if math.isnan(x) or math.isnan(y) or math.isinf(x) or math.isinf(y):
+            ok = (math.isnan(x) and math.isnan(y)) or x == y
+        else:
+            ok = abs(x - y) <= max(last_digit_unit(a), last_digit_unit(b)) * (1 + 1e-9)
+        if not ok:
+            bad.append((a, b))
+    return bad
+
+
+def python_blocks(path):
+    with open(os.path.join(REPO, path)) as fh:
+        return re.findall(r"```python\n(.*?)```", fh.read(), flags=re.DOTALL)
+
+
+def phase12(torch, np):
+    """The public surface as users meet it, the variable unset: (a) the six
+    examples on the card, each against its CPU rerun; (b) the doctests of
+    mbar, fes and the testsystems; (c) the README's port quickstart and
+    docs/torch_port.md's blocks.  Returns K1's launches over the phase's
+    card runs, each counted from zero."""
+    import pymbar_tpu_torch
+    from pymbar_tpu_torch.ops import wsum
+    from pymbar_tpu_torch.ops.mbar_core import mbar_gradient
+
+    if DEVICE_VAR in os.environ:
+        fail(f"{DEVICE_VAR} is set ({os.environ[DEVICE_VAR]!r}): phase 12 runs with it unset")
+    t_phase = time.perf_counter()
+    k1_total = 0
+
+    def run(fn):
+        """(fn's result, its stdout, wall, CUDA allocations made, K1
+        launches), the count set to 0 just before fn."""
+        nonlocal k1_total
+        sync_all(torch)
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        wsum.WSUM_LAUNCHES = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        sync_all(torch)
+        wall = time.perf_counter() - t0
+        k1 = wsum.WSUM_LAUNCHES
+        k1_total += k1
+        grown = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - allocs
+        return out, buf.getvalue(), wall, grown, k1
+
+    def exec_block(code, label):
+        ns = {}
+        exec(compile(code, label, "exec"), ns)
+        return ns
+
+    def example(name):
+        path = os.path.join(REPO, "examples", name)
+        spec = importlib.util.spec_from_file_location(f"example_{name[:-3]}", path)
+        module = importlib.util.module_from_spec(spec)
+        with mock.patch.dict(sys.modules, {"pymbar_tpu": pymbar_tpu_torch}):
+            spec.loader.exec_module(module)
+            module.main()
+
+    # (a) the six examples on the card, each against its CPU rerun
+    scripts = {}
+    for name in EXAMPLES:
+        _, card_out, card_s, allocs, k1 = run(lambda: example(name))
+        with mock.patch.dict(os.environ, {DEVICE_VAR: "cpu"}):
+            _, cpu_out, cpu_s, _, _ = run(lambda: example(name))
+        bad = printed_mismatches(card_out, cpu_out)
+        scripts[name] = dict(card_s=card_s, cpu_s=cpu_s, cuda_allocations=allocs, wsum_launches=k1,
+                             numbers=len(NUMBER.findall(card_out)), mismatches=bad[:5])
+        if not card_out.strip() or allocs <= 0 or bad:
+            emit("12a_examples", scripts=scripts)
+            fail(f"{name}: on the card {allocs} allocations, {len(bad)} printed numbers off "
+                 f"the CPU run ({bad[:5]})")
+    emit("12a_examples", scripts=scripts)
+
+    # (b) the doctests on the card
+    names = ["pymbar_tpu_torch.mbar", "pymbar_tpu_torch.fes"] + [
+        f"pymbar_tpu_torch.testsystems.{m}" for m in
+        ("harmonic_oscillators", "exponential_distributions", "gaussian_work", "timeseries")]
+    doc = {}
+    for name in names:
+        res, report, s, allocs, k1 = run(lambda: doctest.testmod(importlib.import_module(name)))
+        doc[name] = dict(attempted=res.attempted, failed=res.failed, s=s, cuda_allocations=allocs,
+                         wsum_launches=k1)
+        if res.failed:
+            emit("12b_doctests", modules=doc)
+            fail(f"{name}: {res.failed} of {res.attempted} doctests failed:\n{report[-3000:]}")
+    emit("12b_doctests", modules=doc)
+    if sum(d["attempted"] for d in doc.values()) < 54 + 19:
+        fail(f"phase 12 (b) ran too few doctests: {doc}")
+
+    # (c) the README's port quickstart and the docs page's blocks
+    quick = next(b for b in python_blocks("README.md") if "pymbar_tpu_torch" in b)
+    ns, _, quick_s, allocs, k1 = run(lambda: exec_block(quick, "README port quickstart"))
+    fa = ns["tc"].analytical_free_energies()
+    res = ns["results"]
+    z = max_abs_z(res, fa - fa[0])
+    ex = ns["ex"]
+    z_mean = float(np.max(np.abs(ex["mu"] - ns["tc"].analytical_means())
+                          / np.maximum(ex["sigma"], 1e-3)))
+    emit("12c_readme_quickstart", s=quick_s, device=str(ns["mbar"].device), max_abs_z=z,
+         max_abs_z_means=z_mean, cuda_allocations=allocs, wsum_launches=k1)
+    if not (ns["mbar"].device.type == "cuda" and z < 6 and z_mean < 6):
+        fail(f"the README's port quickstart: device {ns['mbar'].device}, |z| {z}, {z_mean}")
+
+    blocks = python_blocks("docs/torch_port.md")
+    page = []
+    for i, block in enumerate(blocks):
+        ns, printed, s, allocs, k1 = run(lambda: exec_block(block, f"docs/torch_port.md block {i}"))
+        entry = dict(block=i, needs_card=block.startswith(CARD_MARK), s=s, cuda_allocations=allocs,
+                     wsum_launches=k1, printed=printed.strip().splitlines())
+        if block.startswith(CARD_MARK):
+            mbar, host, tc, res = ns["mbar"], ns["host"], ns["tc"], ns["results"]
+            fa = tc.analytical_free_energies()
+            N = mbar.u_kn.shape[1]
+            info = mbar.solver_results[0]["info"]
+            g = mbar_gradient(mbar.u_kn, mbar.N_k, mbar.f_k)
+            entry.update(
+                u_kn_bytes=int(ns["u_kn"].nbytes), route=mesh_route(mbar)[0],
+                max_abs_z=max_abs_z(res, fa - fa[0]),
+                gradient_norm_per_sample=float(info["gnorm"]) / N,
+                f64_gradient_norm_per_sample=float(torch.linalg.norm(g)) / N,
+                host_resident=bool(host.u_kn.device.type == "cpu" and host.device.type == "cuda"),
+                host_f_k_max_diff=float(np.abs(host.f_k - mbar.f_k).max()))
+            del g
+            if not (entry["u_kn_bytes"] == 64 * 1048576 * 8 and entry["route"] == "dd" and k1 > 0
+                    and entry["max_abs_z"] < 6 and entry["gradient_norm_per_sample"] <= 1e-11
+                    and entry["f64_gradient_norm_per_sample"] <= 1e-11 and entry["host_resident"]
+                    and entry["host_f_k_max_diff"] <= 1e-12):
+                emit("12c_docs", blocks=page + [entry])
+                fail(f"docs/torch_port.md's card block: {entry}")
+            del mbar, host, tc, res
+        page.append(entry)
+        del ns
+        torch.cuda.empty_cache()
+    emit("12c_docs", blocks=page)
+    if not any(e["needs_card"] for e in page):
+        fail("docs/torch_port.md has no block marked for the card")
+    emit("12_wall", s=time.perf_counter() - t_phase, wsum_launches=k1_total)
+    return k1_total
+
+
 def main():
     import torch
 
@@ -2595,13 +2791,14 @@ def main():
     for name, e in mesh2d_err.items():
         err[name] = max(err[name], e)
     host_k1 = phase11(torch, np, flag_seed, flag11, mesh11, single5, ex7)
+    surface_k1 = phase12(torch, np)
 
     # ---- the kernels line: launches from each one's main-path run
     K, Nf, Ns = FLAGSHIP_K, N_flag, N_slice
     KS = SLICE_K
     rows = [
         ("wsum_dd", "pymbar_tpu_torch/csrc/wsum.cu", "pymbar_tpu/ops/pallas_kernels.py:584",
-         flag_launches + mesh_boot_k1 + host_k1,
+         flag_launches + mesh_boot_k1 + host_k1 + surface_k1,
          bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
         ("column_shift", "pymbar_tpu_torch/csrc/wsum_split.cu",
          "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0] + mesh2d_split[0],

@@ -9,7 +9,8 @@ bootstrap in :mod:`pymbar_tpu_torch.parallel` (``MBAR(mesh=)``) and its
 2-D state x sample mesh (``mesh_2d``, ``sharded2d_solve_mbar_dd``).  The
 reference's solver surface is :mod:`pymbar_tpu_torch.mbar_solvers`, the
 environment toggles :mod:`pymbar_tpu_torch.config`.  Entry points place
-numpy input on the CUDA card unless ``device="cpu"`` is asked for.
+numpy input on the CUDA card unless ``device=`` or the process default
+``PYMBAR_TPU_TORCH_DEVICE`` (e.g. "cpu") names another device.
 :mod:`pymbar_tpu` (JAX) stays the reference; this package imports neither
 it nor JAX.
 

@@ -14,7 +14,8 @@ reference ``pymbar/fes.py`` class ``FES`` (pymbar 4.x fes.py:47-2477):
 
 ``u_kn`` is one float64 tensor shared with the internal
 :class:`pymbar_tpu_torch.MBAR`: a tensor stays where it is, numpy goes to
-``device`` (default: the CUDA card; without one, pass ``device="cpu"``).
+``device`` (default: ``PYMBAR_TPU_TORCH_DEVICE`` when set, else the CUDA
+card; without one, pass ``device="cpu"`` or set the variable to "cpu").
 The device work runs there: the MBAR solve, the per-sample log weights of
 the target state (one reduction over u_kn's column chunks), the histogram's
 augmented covariance (streamed Gram, or the materialized weights below
@@ -147,9 +148,9 @@ class FES:
         timings : bool, optional, default True
             Return wall-time in :meth:`generate_fes`'s result dict.
         device : str or torch.device, optional
-            Where a numpy ``u_kn`` goes (default: the CUDA card; without
-            one, pass ``"cpu"``).  The internal MBAR and the KDE use the
-            same device.
+            Where a numpy ``u_kn`` goes (default: ``PYMBAR_TPU_TORCH_DEVICE``
+            when set, else the CUDA card; without one, pass ``"cpu"``).
+            The internal MBAR and the KDE use the same device.
 
         Notes
         -----
@@ -164,7 +165,7 @@ class FES:
         >>> K_bias, centers = 25.0, np.linspace(0.0, 1.0, 5)
         >>> x_kn = centers[:, None] + rng.normal(0, 0.2, (5, 200))
         >>> u_kn = 0.5 * K_bias * (x_kn.reshape(-1)[None, :] - centers[:, None]) ** 2
-        >>> fes = FES(u_kn, np.full(5, 200), device="cpu")
+        >>> fes = FES(u_kn, np.full(5, 200))
         >>> fes.mbar.f_k.shape
         (5,)
         """
@@ -329,7 +330,7 @@ class FES:
         >>> x_kn = centers[:, None] + rng.normal(0, 0.2, (5, 200))
         >>> x_n = x_kn.reshape(-1)
         >>> u_kn = 0.5 * K_bias * (x_n[None, :] - centers[:, None]) ** 2
-        >>> fes = FES(u_kn, np.full(5, 200), timings=False, device="cpu")
+        >>> fes = FES(u_kn, np.full(5, 200), timings=False)
         >>> _ = fes.generate_fes(np.zeros_like(x_n), x_n, fes_type="histogram",
         ...     histogram_parameters=dict(bin_edges=[np.linspace(-0.5, 1.5, 11)]))
         >>> out = fes.get_fes(np.array([0.25, 0.75]), reference_point="from-lowest")

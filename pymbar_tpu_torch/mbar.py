@@ -14,8 +14,10 @@ one device or, with every state sampled, on the mesh's sharded planes.
 
 ``self.u_kn`` is the stored matrix and ``self.device`` where the work runs.
 A tensor stays where it is and the work runs there; a numpy array goes to
-``device`` as a float64 tensor (default: the CUDA card; without one, pass
-``device="cpu"``).  A CPU tensor with a CUDA ``device`` is host-resident:
+``device`` as a float64 tensor (default: ``PYMBAR_TPU_TORCH_DEVICE`` when
+set, else the CUDA card; without one, pass ``device="cpu"`` or set
+``PYMBAR_TPU_TORCH_DEVICE=cpu``; :func:`pymbar_tpu_torch.config.target_device`).
+A CPU tensor with a CUDA ``device`` is host-resident:
 ``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing, and
 every pass over u_kn streams its column chunks to the card through two
 pinned staging buffers (``mbar_core.stream_columns``): the dd split into
@@ -319,10 +321,11 @@ class MBAR:
     """Multistate Bennett acceptance ratio estimator on PyTorch.
 
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
-    a numpy ``u_kn`` is placed (default "cuda", and without a card a
-    :class:`ParameterError` that asks for ``device="cpu"``; a tensor's own
-    device is used as it is).  A CPU tensor with a CUDA ``device`` is
-    host-resident: ``self.u_kn`` keeps the caller's tensor in host memory
+    a numpy ``u_kn`` is placed (default ``PYMBAR_TPU_TORCH_DEVICE``, else
+    "cuda", and without a card a :class:`ParameterError` that asks for
+    ``device="cpu"``; a tensor's own device is used as it is).  A CPU
+    tensor with a CUDA ``device`` is host-resident: ``self.u_kn`` keeps the
+    caller's tensor in host memory
     (``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing) and
     the work runs on ``self.device``, every pass streaming u_kn's column
     chunks through pinned staging to the card (see the module docstring).
@@ -363,6 +366,21 @@ class MBAR:
     mesh route, as in the JAX package) and ``solver_results`` each stage's
     result dict.  ``u_kn`` itself stays on its one device: the free
     energies stream it there.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from pymbar_tpu_torch import MBAR
+    >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+    >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 1.0, 2.0], K_k=[1.0, 1.5, 2.0])
+    >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[400, 300, 300], mode="u_kn", seed=7)
+    >>> mbar = MBAR(u_kn, N_k)
+    >>> results = mbar.compute_free_energy_differences()
+    >>> sorted(results)
+    ['Delta_f', 'dDelta_f']
+    >>> fa = tc.analytical_free_energies(); fa = fa - fa[0]
+    >>> bool(np.all(np.abs(results["Delta_f"][0] - fa) < 6 * (results["dDelta_f"][0] + 1e-8)))
+    True
     """
 
     def __init__(
@@ -843,6 +861,17 @@ class MBAR:
         the symmetric D^1/2 G D^1/2 (similar through D^1/2; empty states
         give exact zero rows and columns in both): the spectrum comes from
         ``eigvalsh`` on the Gram's device.
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from pymbar_tpu_torch import MBAR
+        >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+        >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 0.0], K_k=[1.0, 1.0])
+        >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[200, 200], mode="u_kn", seed=1)
+        >>> O = MBAR(u_kn, N_k).compute_overlap()["matrix"]
+        >>> bool(np.allclose(O, 0.5, atol=1e-6))  # identical states: 1/K
+        True
         """
         gram, _colsum = self._gram_colsum()
         s = torch.sqrt(torch.as_tensor(self.N_k, dtype=torch.float64, device=gram.device))
@@ -885,6 +914,17 @@ class MBAR:
             ``compute_uncertainty``); ``'Theta'`` : (K, K) (if
             ``return_theta``).  Reference: ``pymbar.MBAR``
             (pymbar 4.x mbar.py:620-729).
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from pymbar_tpu_torch import MBAR
+        >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+        >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 1.0], K_k=[1.0, 2.0])
+        >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[300, 300], mode="u_kn", seed=3)
+        >>> res = MBAR(u_kn, N_k).compute_free_energy_differences()
+        >>> res["Delta_f"].shape, float(res["Delta_f"][0, 0])
+        ((2, 2), 0.0)
         """
         Deltaf_ij = np.array(self.f_k - np.vstack(self.f_k))
         self._zerosamestates(Deltaf_ij)
@@ -1458,6 +1498,17 @@ class MBAR:
         chunks.  Reference: ``pymbar.MBAR.compute_expectations``
         (pymbar 4.x mbar.py:1124-1312) -- with the JAX package's fix that
         ``return_theta=True`` without uncertainties does not crash.
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from pymbar_tpu_torch import MBAR
+        >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+        >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 1.0], K_k=[1.0, 2.0])
+        >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[500, 500], mode="u_kn", seed=5)
+        >>> ex = MBAR(u_kn, N_k).compute_expectations(x_n)
+        >>> bool(np.all(np.abs(ex["mu"] - tc.analytical_means()) < 6 * ex["sigma"] + 0.05))
+        True
         """
         if uncertainty_method == "bootstrap" and (
             self.n_bootstraps is None or self.n_bootstraps <= 0
@@ -1589,6 +1640,18 @@ class MBAR:
         Reference: ``pymbar.MBAR.compute_multiple_expectations``
         (pymbar 4.x mbar.py:1315-1439), including its
         ``compute_uncertainty != "bootstrap"`` comparison quirk.
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from pymbar_tpu_torch import MBAR
+        >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+        >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 1.0], K_k=[1.0, 2.0])
+        >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[400, 400], mode="u_kn", seed=9)
+        >>> A_in = np.vstack([x_n, x_n**2])
+        >>> out = MBAR(u_kn, N_k).compute_multiple_expectations(A_in, u_kn[0])
+        >>> out["mu"].shape, out["sigma"].shape
+        ((2,), (2,))
         """
         if not torch.is_tensor(A_in):
             A_in = np.asarray(A_in)
@@ -1678,6 +1741,18 @@ class MBAR:
         -----
         Reference: ``pymbar.MBAR.compute_perturbed_free_energies``
         (pymbar 4.x mbar.py:1442-1520).
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from pymbar_tpu_torch import MBAR
+        >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+        >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 1.0], K_k=[1.0, 2.0])
+        >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[400, 400], mode="u_kn", seed=2)
+        >>> u_ln = np.vstack([u_kn[0], 0.5 * 3.0 * (x_n - 0.5) ** 2])
+        >>> out = MBAR(u_kn, N_k).compute_perturbed_free_energies(u_ln)
+        >>> out["Delta_f"].shape
+        (2, 2)
         """
         if len(np.shape(u_ln)) == 3:
             u_ln = kln_to_kn(_host(u_ln), N_k=self.N_k)
@@ -1739,6 +1814,17 @@ class MBAR:
         Theta in f64 on its device (:meth:`_entropy_sigmas`).  Reference:
         ``pymbar.MBAR.compute_entropy_and_enthalpy`` (pymbar 4.x
         mbar.py:1524-1681).
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from pymbar_tpu_torch import MBAR
+        >>> from pymbar_tpu_torch.testsystems import HarmonicOscillatorsTestCase
+        >>> tc = HarmonicOscillatorsTestCase(O_k=[0.0, 1.0], K_k=[1.0, 2.0])
+        >>> x_n, u_kn, N_k, s_n = tc.sample(N_k=[400, 400], mode="u_kn", seed=4)
+        >>> out = MBAR(u_kn, N_k).compute_entropy_and_enthalpy()
+        >>> sorted(out)
+        ['Delta_f', 'Delta_s', 'Delta_u', 'dDelta_f', 'dDelta_s', 'dDelta_u']
         """
         if verbose:
             logger.info("Computing average energy and entropy by MBAR.")

@@ -4,8 +4,12 @@ The counterpart of :mod:`pymbar_tpu.mbar_solvers`: users of the reference
 import solver primitives as ``from pymbar import mbar_solvers``; this
 module re-exports the same names (pymbar 4.x mbar_solvers.py) from their
 homes in :mod:`pymbar_tpu_torch.ops.mbar_core` and
-:mod:`pymbar_tpu_torch.solvers`.  The ``ops.mbar_core`` functions take
-``u_kn`` as a tensor; the ``solvers`` entry points also take numpy.
+:mod:`pymbar_tpu_torch.solvers`.  Each takes ``u_kn`` as a tensor, used on
+its device, or as numpy, which goes where the JAX package puts it: on
+:func:`pymbar_tpu_torch.config.target_device` (the CUDA card unless
+``device=`` or ``PYMBAR_TPU_TORCH_DEVICE`` names another device; without a
+card and with neither, the call raises), except ``validate_inputs``, which
+keeps numpy on the host as the JAX package does.
 """
 
 from pymbar_tpu_torch.ops.mbar_core import (

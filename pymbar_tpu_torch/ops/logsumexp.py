@@ -4,10 +4,14 @@ The counterpart of :mod:`pymbar_tpu.ops.logsumexp` (reference pymbar 4.x
 utils.py:279-337): the per-slice maximum is replaced by 0 where it is not
 finite, so an all-(-inf) slice reduces to -inf instead of nan, and an
 optional multiplicative weight ``b`` scales each exponential (a zero weight
-drops its term exactly).  Computes on the device of ``a``.
+drops its term exactly).  Computes on the device of ``a``: a tensor's
+own, and for anything else :func:`pymbar_tpu_torch.config.target_device`,
+where the JAX package's ``jnp.asarray`` puts it.
 """
 
 import torch
+
+from pymbar_tpu_torch.config import target_device
 
 __all__ = ["logsumexp"]
 
@@ -17,7 +21,7 @@ def logsumexp(a, axis=None, b=None, keepdims=False):
 
     Parameters
     ----------
-    a : torch.Tensor (or array-like, taken as a CPU tensor)
+    a : torch.Tensor (or array-like, placed on :func:`target_device`)
         Log-space inputs.
     axis : int, tuple of ints or None
         Reduction axes (None: all).
@@ -27,7 +31,8 @@ def logsumexp(a, axis=None, b=None, keepdims=False):
     keepdims : bool
         Keep the reduced axes with size 1.
     """
-    a = torch.as_tensor(a)
+    if not torch.is_tensor(a):
+        a = torch.as_tensor(a, device=target_device())
     dims = tuple(range(a.ndim)) if axis is None else axis
     a_max = torch.amax(a, dim=dims, keepdim=True)
     a_max = torch.where(torch.isfinite(a_max), a_max, 0.0)

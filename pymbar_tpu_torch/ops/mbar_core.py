@@ -11,9 +11,16 @@ from which the self-consistent update, the gradient and the objective
 follow, plus the Hessian and covariance aggregates in Gram form
 (W W^T, K x K), so no N x K weight matrix is formed.
 
-Every function takes ``u_kn`` as a tensor or as numpy (a CPU float64
-tensor then, sharing its memory), the K-vectors N_k and f_k as either, and
-computes on the device ``u_kn`` lives on; only the K-vectors move there.  Eager PyTorch makes a full-size temporary
+Every function takes ``u_kn`` as a tensor or as numpy, the K-vectors N_k
+and f_k as either, and computes on the device ``u_kn`` lives on; only the
+K-vectors move there.  A tensor keeps its device.  Numpy goes where the
+JAX package's ``jnp.asarray`` puts it: the functions of the reference's
+``mbar_solvers`` surface and their passes (:func:`_placed`) upload it as
+float64 to :func:`pymbar_tpu_torch.config.target_device` (the card, or
+the device ``device=`` or ``PYMBAR_TPU_TORCH_DEVICE`` names), while
+:func:`validate_inputs` and the streaming helpers (:func:`stream_columns`,
+:func:`u_kn_on`) keep it on the host as a CPU float64 tensor sharing its
+memory.  Eager PyTorch makes a full-size temporary
 for each elementwise op, so every K x N pass walks the sample axis in
 column chunks of at most ``_CHUNK_BYTES`` (:func:`stream_columns`) and
 updates its chunk temporaries in place.
@@ -33,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from pymbar_tpu_torch.config import target_device
 from pymbar_tpu_torch.utils import ensure_type
 
 __all__ = [
@@ -85,6 +93,16 @@ def _as_tensor(u_kn):
     if torch.is_tensor(u_kn):
         return u_kn
     return torch.from_numpy(np.ascontiguousarray(u_kn, dtype=np.float64))
+
+
+def _placed(u_kn, device=None):
+    """u_kn as a public entry point takes it: a tensor as given; numpy as
+    float64 on :func:`target_device` of ``device`` (without a card, and with
+    no device named, that raises), where the JAX package's ``jnp.asarray``
+    puts it."""
+    if torch.is_tensor(u_kn):
+        return u_kn
+    return _as_tensor(u_kn).to(target_device(device))
 
 
 def _same_device(a, b):
@@ -280,7 +298,7 @@ def log_denominator_n(u_kn, N_k, f_k):
     :func:`mbar_w_nk_gram` and :func:`mbar_hessian` take the same leading
     batch dimension.
     """
-    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k)
+    u_kn, N_k, f_k, dev = _prepare(_placed(u_kn), N_k, f_k)
     out = torch.empty(u_kn.shape[:-2] + u_kn.shape[-1:], dtype=N_k.dtype, device=dev)
     for s, e, u_c in stream_columns(u_kn):
         out[..., s:e] = _logden_direct(u_c, N_k, f_k)
@@ -339,7 +357,7 @@ def core_stats(u_kn, N_k, f_k, device=None, rows=None):
     ``rows`` restricts the pass to those rows of u_kn (N_k and f_k then
     hold theirs only); ``device`` is where it runs (:func:`stream_columns`).
     """
-    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    u_kn, N_k, f_k, dev = _prepare(_placed(u_kn, device), N_k, f_k, device)
     logden, lognum = _core_pass(u_kn, N_k, f_k, dev, rows)
     obj = logden.sum(dim=-1) - f_k @ N_k
     grad = -N_k * (1.0 - torch.exp(f_k + lognum))
@@ -352,7 +370,7 @@ def self_consistent_update(u_kn, N_k, f_k, states_with_samples=None, device=None
     Only states in ``states_with_samples`` feed the denominator when given
     (each chunk gathers those rows).  One pass over u_kn on ``device``.
     """
-    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    u_kn, N_k, f_k, dev = _prepare(_placed(u_kn, device), N_k, f_k, device)
     rows = None
     if states_with_samples is not None:
         rows = np.asarray(states_with_samples)
@@ -368,7 +386,7 @@ def mbar_gradient(u_kn, N_k, f_k, device=None, rows=None):
 
 def mbar_objective(u_kn, N_k, f_k):
     """MBAR objective (reference mbar_solvers.py:295-339)."""
-    u_kn, N_k, f_k, _dev = _prepare(u_kn, N_k, f_k)
+    u_kn, N_k, f_k, _dev = _prepare(_placed(u_kn), N_k, f_k)
     return log_denominator_n(u_kn, N_k, f_k).sum(dim=-1) - f_k @ N_k
 
 
@@ -394,7 +412,7 @@ def mbar_w_nk_gram(u_kn, N_k, f_k):
     W[n, k] = exp(f_k - u_kn[k, n] - logden_n).  These are the only
     aggregates the Hessian (Eq. C9) needs.
     """
-    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k)
+    u_kn, N_k, f_k, dev = _prepare(_placed(u_kn), N_k, f_k)
     K = u_kn.shape[-2]
     gram = torch.zeros(u_kn.shape[:-1] + (K,), dtype=N_k.dtype, device=dev)
     colsum = torch.zeros(u_kn.shape[:-1], dtype=N_k.dtype, device=dev)
@@ -407,7 +425,7 @@ def mbar_w_nk_gram(u_kn, N_k, f_k):
 
 def mbar_hessian(u_kn, N_k, f_k):
     """Hessian of the MBAR objective, Eq. C9 (reference mbar_solvers.py:395-436)."""
-    u_kn, N_k, f_k, _dev = _prepare(u_kn, N_k, f_k)
+    u_kn, N_k, f_k, _dev = _prepare(_placed(u_kn), N_k, f_k)
     gram, colsum = mbar_w_nk_gram(u_kn, N_k, f_k)
     H = gram * N_k[None, :] * N_k[:, None]
     H -= torch.diag_embed(colsum * N_k)
@@ -417,7 +435,7 @@ def mbar_hessian(u_kn, N_k, f_k):
 def mbar_W_nk(u_kn, N_k, f_k):
     """Normalized weights, Eq. 9, materialized in (N, K) layout (reference
     mbar_solvers.py:479-507).  Only for small validation paths."""
-    u_kn = _as_tensor(u_kn)
+    u_kn = _placed(u_kn)
     f_k = _like(f_k, u_kn)
     return _weights(u_kn, f_k, log_denominator_n(u_kn, N_k, f_k)).T
 
@@ -437,7 +455,7 @@ def mbar_log_W_nk(u_kn, N_k, f_k, device=None):
     mbar_solvers.py:439-476).  Each column chunk's (K, nc) block
     (:func:`_log_w_blocks`) is written transposed into the output, so the
     only full-size allocation is the result itself."""
-    u = _as_tensor(u_kn)
+    u = _placed(u_kn, device)
     dt, dev = _work_on(u, device)
     K, N = u.shape
     out = torch.empty((N, K), dtype=dt, device=dev)
@@ -498,7 +516,7 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
 
     The callbacks receive u's chunks on ``device``.
     """
-    u_kn, N_k, f_k, dev = _prepare(u_kn, N_k, f_k, device)
+    u_kn, N_k, f_k, dev = _prepare(_placed(u_kn, device), N_k, f_k, device)
     dt = N_k.dtype
     K, N = u_kn.shape
     N_s, f_s = N_k, f_k
@@ -552,7 +570,7 @@ def precondition_u_kn(u_kn, N_k, f_k):
     u_kn (B, K, N) preconditions every replicate of a batch around the same
     (K,) f_k.
     """
-    u_kn = _as_tensor(u_kn)
+    u_kn = _placed(u_kn)
     N_k, f_k = _like(N_k, u_kn), _like(f_k, u_kn)
     c_shift = torch.dot(N_k, f_k) / N_k.sum()
     out = torch.empty_like(u_kn)

@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from pymbar_tpu_torch.config import default_device
 from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
 from pymbar_tpu_torch.ops.lognum import lognum_fused_dd
 from pymbar_tpu_torch.ops.mbar_core import (
@@ -127,8 +128,11 @@ def default_mesh(n_devices=None, axis_name="n", device=None):
     them when given); without a card this raises, naming ``device="cpu"``.
     With ``device``, ``n_devices`` shards (default 1) on that one device:
     ``device="cpu"`` for CPU shards, ``"cuda:0"`` for several shards on one
-    card.
+    card.  A process default device that is not CUDA
+    (``PYMBAR_TPU_TORCH_DEVICE=cpu``) stands for ``device``
+    (:func:`_mesh_device`); a CUDA one still gives every card.
     """
+    device = _mesh_device(device)
     if device is None:
         devices = _cards()[:n_devices]
     else:
@@ -136,6 +140,17 @@ def default_mesh(n_devices=None, axis_name="n", device=None):
     if not devices:
         raise ValueError(f"default_mesh: no devices (n_devices={n_devices})")
     return Mesh(devices, axis_name)
+
+
+def _mesh_device(device):
+    """``device``, or when None the process default device
+    (:func:`pymbar_tpu_torch.config.default_device`) if that is not CUDA:
+    a mesh on the default CUDA device is every card."""
+    if device is None:
+        dflt = default_device()
+        if dflt is not None and dflt.type != "cuda":
+            return dflt
+    return device
 
 
 def _cards():
@@ -427,11 +442,13 @@ def mesh_2d(k_devices, n_devices, axis_names=("k", "n"), device=None):
     With no ``device``, the first ``k_devices * n_devices`` CUDA cards, row
     by row; without enough of them it raises, naming ``device="cpu"``.  With
     ``device``, every block on that one device: ``"cuda:0"`` for k x n
-    shards of one card, ``"cpu"`` for CPU shards.
+    shards of one card, ``"cpu"`` for CPU shards.  A non-CUDA process
+    default device stands for ``device``, as in :func:`default_mesh`.
     """
     if k_devices < 1 or n_devices < 1:
         raise ValueError(f"mesh_2d: a {k_devices} x {n_devices} mesh has no devices")
     n = k_devices * n_devices
+    device = _mesh_device(device)
     if device is None:
         devices = _cards()
         if len(devices) < n:

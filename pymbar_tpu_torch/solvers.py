@@ -32,9 +32,11 @@ import numpy as np
 import scipy.optimize
 import torch
 
+from pymbar_tpu_torch.config import target_device
 from pymbar_tpu_torch.ops.mbar_core import (
     _CHUNK_BYTES,
     _as_tensor,
+    _placed,
     _work_on,
     core_stats,
     mbar_gradient,
@@ -105,18 +107,15 @@ scipy_root_options = ["hybr", "lm"]
 _ADAPTIVE_ONLY = ("min_sc_iter", "print_warning", "gamma", "verbose", "nr_method")
 
 
-def target_device(device=None):
-    """Where an entry point places a numpy input: ``device`` when given,
-    else the CUDA card.  Without a card, with no device or a CUDA one asked
-    for, it raises :class:`ParameterError`: nothing falls back to the CPU
-    unasked."""
-    if device is not None and torch.device(device).type != "cuda":
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise ParameterError(
-            'no CUDA device is available: pass device="cpu" to run on the CPU'
-        )
-    return torch.device("cuda") if device is None else torch.device(device)
+def _entry(u_kn, device=None):
+    """(u, device) of a protocol entry point: a tensor with ``device`` as
+    given; numpy as a CPU float64 tensor sharing its memory, with the work
+    on :func:`target_device` of ``device``.  The solve then reaches that
+    device as a host-resident u_kn does: the dd split streams the column
+    chunks into its planes, any other method uploads the matrix whole."""
+    if torch.is_tensor(u_kn):
+        return u_kn, device
+    return _as_tensor(u_kn), target_device(device)
 
 
 # -----------------------------------------------------------------------------
@@ -252,7 +251,8 @@ def adaptive(u_kn, N_k, f_k, tol=1.0e-8, options=None):
     Per iteration both a Newton step (H^-1 g via least squares, f_0 re-pinned)
     and a self-consistent step are computed; the one with the smaller gradient
     norm is taken (reference mbar_solvers.py:510-667).  ``u_kn`` is a
-    tensor; N_k and f_k are moved to its device and dtype.
+    tensor (used on its device) or numpy (placed on
+    :func:`target_device`); N_k and f_k are moved to its device and dtype.
 
     Options: ``gamma`` (Newton step scale, default 1.0), ``maxiter`` (default
     10000), ``min_sc_iter`` (minimum forced SC iterations, default 2),
@@ -275,7 +275,7 @@ def adaptive(u_kn, N_k, f_k, tol=1.0e-8, options=None):
     if tol < 4.0 * np.finfo(np.float64).eps:
         logger.info("Tolerance may be too close to machine precision to converge.")
 
-    u_kn = _as_tensor(u_kn)
+    u_kn = _placed(u_kn)
     N_k = torch.as_tensor(N_k, dtype=u_kn.dtype, device=u_kn.device)
     f_k = torch.as_tensor(f_k, dtype=u_kn.dtype, device=u_kn.device)
 
@@ -371,7 +371,8 @@ def anderson(u_kn, N_k, f_k, tol=1.0e-12, options=None):
     The counterpart of :func:`pymbar_tpu.solvers.anderson` (no reference
     analog): the Eq. C3 fixed point with Anderson mixing over an ``m``-deep
     residual history (:func:`_anderson`).  Each iteration is one
-    :func:`core_stats` pass pair on u_kn's device and O(K m^2) host algebra
+    :func:`core_stats` pass pair on u_kn's device (numpy is placed on
+    :func:`target_device`) and O(K m^2) host algebra
     (numpy ``lstsq`` on the residual differences); no K x K Hessian.
 
     Options: ``maxiter`` (default 1000), ``m`` (history depth, default 5),
@@ -381,7 +382,7 @@ def anderson(u_kn, N_k, f_k, tol=1.0e-12, options=None):
     options = dict(options or {})
     maxiter = int(options.get("maxiter", 1000))
 
-    u_kn = _as_tensor(u_kn)
+    u_kn = _placed(u_kn)
     N_k = torch.as_tensor(N_k, dtype=u_kn.dtype, device=u_kn.device)
     f = np.asarray(f_k.cpu() if torch.is_tensor(f_k) else f_k, dtype=np.float64)
 
@@ -599,7 +600,9 @@ def solve_mbar_once(
     ("hybr"/"lm") with the analytic Jacobian.
 
     ``rows`` solves the rows ``rows`` of ``u_kn_nonzero`` (N_k and f_k hold
-    theirs only), ``device`` says where (default: u's own).  The dd stage
+    theirs only), ``device`` says where (default: a tensor's own device;
+    for numpy, :func:`target_device`, where the JAX package's
+    ``jnp.asarray`` puts it).  The dd stage
     streams those rows' column chunks into its planes; every other method
     reads the matrix each iteration and gathers it onto ``device`` whole
     (:func:`pymbar_tpu_torch.ops.mbar_core.u_kn_on`), freed on return.
@@ -608,8 +611,8 @@ def solve_mbar_once(
     """
     del continuation  # consumed by solve_mbar; accepted for **solver splat
     options = dict(options or {})
+    u_kn_nonzero, device = _entry(u_kn_nonzero, device)
     if method == "dd":
-        u_kn_nonzero = _as_tensor(u_kn_nonzero)
         K = u_kn_nonzero.shape[0] if rows is None else len(rows)
         N_k_nonzero = ensure_type(N_k_nonzero, "float", 1, "N_k", shape=(K,), warn_on_cast=False)
         f_k_nonzero = ensure_type(f_k_nonzero, "float", 1, "f_k", shape=(K,))
@@ -731,7 +734,7 @@ def solve_mbar(u_kn_nonzero, N_k_nonzero, f_k_nonzero, solver_protocol=None, dev
     """
     if solver_protocol is None:
         solver_protocol = DEFAULT_SOLVER_PROTOCOL
-    u_t = _as_tensor(u_kn_nonzero)
+    u_t, device = _entry(u_kn_nonzero, device)
 
     all_fks = []
     all_gnorms = []
@@ -740,7 +743,7 @@ def solve_mbar(u_kn_nonzero, N_k_nonzero, f_k_nonzero, solver_protocol=None, dev
 
     for solver in solver_protocol:
         f_k_nonzero_result, results = solve_mbar_once(
-            u_kn_nonzero, N_k_nonzero, f_k_nonzero, **solver, device=device, rows=rows
+            u_t, N_k_nonzero, f_k_nonzero, **solver, device=device, rows=rows
         )
         all_fks.append(f_k_nonzero_result)
         if "gnorm" in results.get("info", {}):
@@ -790,7 +793,8 @@ def solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_protoc
 
     Mirrors reference mbar_solvers.py:977-1017.  A tensor u_kn is used on
     its device as given (the sampled-state selection copies only when some
-    state is empty).  Returns f_k, a float64 ndarray, as the JAX package
+    state is empty); numpy is solved on :func:`target_device`, where the
+    JAX package puts it.  Returns f_k, a float64 ndarray, as the JAX package
     does; :func:`_solve_mbar_for_all_states` also returns the per-stage
     result dicts.
     """
@@ -802,12 +806,13 @@ def _solve_mbar_for_all_states(u_kn, N_k, f_k, states_with_samples, solver_proto
     """:func:`solve_mbar_for_all_states` returning (f_k ndarray, list of
     per-stage result dicts): the MBAR class's front door.
 
-    ``device``: where the work runs (default: u's own).  A CPU u_kn with a
-    CUDA device stays in host memory under a dd-only protocol (the split
-    and the empty-state fill stream its column chunks); any other protocol
-    reads the matrix every iteration, so it is uploaded whole for the
-    solve and freed on return."""
-    u_kn = _as_tensor(u_kn)
+    ``device``: where the work runs (default: a tensor's own device, and
+    :func:`target_device` for numpy).  A CPU u_kn with a CUDA device (numpy
+    too) stays in host memory under a dd-only protocol (the split and the
+    empty-state fill stream its column chunks); any other protocol reads
+    the matrix every iteration, so it is uploaded whole for the solve and
+    freed on return."""
+    u_kn, device = _entry(u_kn, device)
     dev = _work_on(u_kn, device)[1]
     dd_only = all(s.get("method") == "dd" for s in (solver_protocol or ()))
     if not dd_only:

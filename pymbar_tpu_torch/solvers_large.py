@@ -290,7 +290,8 @@ def solve_mbar_dd(
     u_hi, u_lo : (K, N) float32 tensors, or numpy arrays
         Double-word planes of the (preconditioned) reduced potentials.  A
         tensor keeps its device; numpy goes to ``device``, by default the
-        CUDA card (``device="cpu"`` runs on the CPU).
+        CUDA card (``device="cpu"`` or ``PYMBAR_TPU_TORCH_DEVICE=cpu`` runs
+        on the CPU; :func:`pymbar_tpu_torch.config.target_device`).
     N_k : (K,) — all states must have samples (empty-state fill is the
         caller's job, as in solve_mbar_for_all_states).
     f_k : optional initial guess (float64).

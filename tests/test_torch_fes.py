@@ -319,9 +319,11 @@ def test_fes_is_exported_lazily():
         sys.modules.update(saved)
 
 
-def test_docstring_examples_run():
-    """The ``>>>`` examples of the port's FES (on the CPU) run and pass."""
+def test_docstring_examples_run(monkeypatch):
+    """The ``>>>`` examples of the port's FES (on the CPU, the process
+    default device) run and pass."""
     import pymbar_tpu_torch.fes
 
+    monkeypatch.setenv("PYMBAR_TPU_TORCH_DEVICE", "cpu")
     result = doctest.testmod(pymbar_tpu_torch.fes, optionflags=doctest.ELLIPSIS)
     assert result.attempted >= 10 and result.failed == 0

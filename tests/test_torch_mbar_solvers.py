@@ -16,6 +16,13 @@ from pymbar_tpu_torch.ops import mbar_core
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu_default(monkeypatch):
+    """Numpy into the solver entry points goes to the process default device
+    (the card unless named): these tests ask for the CPU."""
+    monkeypatch.setenv("PYMBAR_TPU_TORCH_DEVICE", "cpu")
+
+
 def test_names_match_jax():
     assert mbar_solvers.__all__ == jms.__all__
     for name in mbar_solvers.__all__:

@@ -27,6 +27,13 @@ from pymbar_tpu_torch.utils_for_testing import oscillators
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu_default(monkeypatch):
+    """Numpy into the solver entry points goes to the process default device
+    (the card unless named): these tests ask for the CPU."""
+    monkeypatch.setenv("PYMBAR_TPU_TORCH_DEVICE", "cpu")
+
+
 def _oscillators(K, npk, seed, O_hi=4.0):
     rng = np.random.default_rng(seed)
     O = np.linspace(0.0, O_hi, K)
