@@ -110,8 +110,10 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    N_eff <= N to 1e-9 relative, and 1 / sum_n W_nk^2 from Log_W_nk to 1e-10
    relative); compute_overlap (rows sum to 1 and the top eigenvalue is 1,
    within 1e-10; the scalar in [0, 1]); the free energies with
-   uncertainty_method="svd" (W factored on the card) equal to "svd-ew" to 8
-   decimals; bar and exp on the state-0/state-1 work values (Delta_f within
+   uncertainty_method="svd" (W's R factor folded chunk by chunk on the
+   card) equal to "svd-ew" to 8 decimals, its peak under half of the 25.3
+   GB the whole-W route took; bar and exp on the state-0/state-1 work
+   values (Delta_f within
    6 sigma of MBAR's and of the analytic value); statistical_inefficiency
    and subsample_correlated_data on correlated_timeseries_example at its
    published length (g within 50% of its analytic value, one sample per g).
@@ -227,7 +229,8 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    and its planes, 98.3 GB) printed against the card's memory; the dd route
    through K1 from the host, converged (gradient norm / N <= 1e-11 by the
    solver and by a streamed f64 evaluation), |z| < 6, the peak below the
-   card's memory.
+   card's memory; then 'svd' from host memory (W alone would be 49.1 GB)
+   equal to svd-ew to 8 decimals, its peak below the card's memory.
 
 12. The public surface as users meet it, with PYMBAR_TPU_TORCH_DEVICE
    unset (the phase fails if it is set; only its CPU reruns set it, and
@@ -247,10 +250,33 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    float64 evaluation, and the host-resident solve's f_k within 1e-12 of
    the resident one.
 
+13. The paths a host-resident u_kn reached last, each a CPU tensor with
+   device="cuda", each run on its own line with its wall, its peak above
+   what was resident and its launches.  (a) Phase 8's umbrella cell made
+   as there and moved to host memory: FES from the host (the dd route,
+   K1), the analytical histogram (f_i within 1e-12 and df_i within 1e-10
+   relative of phase 8's), the B = 16 counts bootstrap (f_k_boots within
+   1e-12) and the KDE (1e-12); then the flagship histogram of phase 8b
+   from host memory, the same bars, its peak at most 0.6 x phase 8b's
+   including u_kn.  (b) Phase 9c's 545 MB umbrella cell with its unbiased
+   state unsampled, B = 16 on the batched route at phase 9c's chunk width,
+   each replicate's columns copied on the card out of u_kn's uploaded
+   column chunks: f_k_boots within 1e-12 of phase 9c's, n_fail equal, the
+   peak at most phase 9c's above its resident u_kn plus the two staging
+   buffers.  (c) 'svd' at the flagship from host
+   memory beside phase 6's wall and peak: svd-ew's to 8 decimals, the
+   peak under half of 25.3 GB.  (d) Phase 3's slice remade and moved to
+   host memory, streamed into (2, 2) blocks of cuda:0
+   (stream_shard_planes_2d, peak under 1.5 x the blocks) and solved by
+   sharded2d_solve_mbar_dd: f within 1e-12 of phase 10b's, no K1 launch,
+   the shift, K3 and K4 launched as in phase 10b.  The wall phase 13 and
+   phase 11b's 'svd' add to the run is printed.
+
 Then the card, the kernels line (K1's launches: phase 2's MBAR, phase 9
-(a)'s, phase 11's and phase 12's runs; the shift's, K3's and K4's: phase
-3's MBAR and phase 10 (b)'s solve) and {"ok": true, "device": {...}} close
-the output.  Without a CUDA card, or without the repository beside this
+(a)'s, phase 11's, phase 12's and phase 13's runs; the shift's, K3's and
+K4's: phase 3's MBAR, phase 10 (b)'s and phase 13 (d)'s solves) and
+{"ok": true, "device": {...}} close the output.  Without a CUDA card, or
+without the repository beside this
 file, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
@@ -298,6 +324,9 @@ SMALL_BOOT = 100
 SOURCES = ("wsum", "wsum_split", "lognum", "roofline")
 LOG_ABS_TOL = 1.0e-12
 MESH_DF_TOL = 5.0e-10
+# The peak of 'svd' at the flagship when it factored the whole N x K W on
+# the card, before the streamed R factor (H100 80GB HBM3, 700 W; PERF.md)
+SVD_WHOLE_W_PEAK = 25.3e9
 
 # Lower bounds of a kernel's time: HBM3 at 3.35 TB/s and the H100 SXM's
 # vector peaks (NVIDIA data sheet, 700 W): 67 TFLOP/s float32, 34 TFLOP/s
@@ -589,10 +618,25 @@ def phase7(torch, np, u_kn, N_k, x_n, f_flag, flag_df3, flag_ddf3, flag_polish, 
     return ex1
 
 
+def umbrella_x(np):
+    """Phase 8's umbrella samples: 64 windows (Ku = 100, centres 0.2
+    linspace(-3, 3)) on the quadratic base (K0 = 20), 16,384 each.
+    Returns (x_n, centres, K0, Ku)."""
+    K0, Ku = 20.0, 100.0
+    rng = np.random.RandomState(23)
+    centers = np.linspace(-3.0, 3.0, FES_KW) * 0.2
+    sigma = 1.0 / (K0 + Ku)
+    x_n = (sigma * Ku * centers[:, None]
+           + np.sqrt(sigma) * rng.standard_normal((FES_KW, FES_NPW))).reshape(-1)
+    return x_n, centers, K0, Ku
+
+
 def phase8(torch, np, u_flag, N_k_flag, x_flag):
     """FES: (a) the umbrella configuration at full size, made on the card;
     (b) the analytical histogram on the flagship u_flag (phase 7's, with its
-    samples x_flag), through the streamed augmented Gram."""
+    samples x_flag), through the streamed augmented Gram.  Returns the
+    resident values phase 13 holds its host-resident runs to: (a)'s
+    histogram, bootstrap replicates and KDE, (b)'s histogram and peaks."""
     from pymbar_tpu_torch import FES
     from pymbar_tpu_torch import kde as tkde
     from pymbar_tpu_torch import mbar as tmbar
@@ -626,12 +670,7 @@ def phase8(torch, np, u_flag, N_k_flag, x_flag):
     # (a) bench.py's fes_slice, after pymbar's umbrella-sampling-fes example:
     # 64 harmonic windows (Ku = 100) on a quadratic base (K0 = 20), 16,384
     # samples each; u_kn built on the card from the seed's x_n
-    K0, Ku = 20.0, 100.0
-    rng = np.random.RandomState(23)
-    centers = np.linspace(-3.0, 3.0, FES_KW) * 0.2
-    sigma = 1.0 / (K0 + Ku)
-    x_n = (sigma * Ku * centers[:, None]
-           + np.sqrt(sigma) * rng.standard_normal((FES_KW, FES_NPW))).reshape(-1)
+    x_n, centers, K0, Ku = umbrella_x(np)
     u_n = (K0 / 2.0) * x_n**2
     N_k = np.full(FES_KW, FES_NPW, dtype=np.int64)
     x_dev = torch.as_tensor(x_n, device=dev)
@@ -695,6 +734,7 @@ def phase8(torch, np, u_flag, N_k_flag, x_flag):
         return fes.get_fes(cent, reference_point="from-lowest", uncertainty_method="bootstrap")
 
     rb, _, _, _ = run("a_histogram_bootstrap", bootstrap, n_bootstraps=FES_BOOT)
+    f_k_boots = fes.f_k_boots.copy()
     expected_route = "counts" if route == "dd" else "replicate"
     (f_rep, n_fail), _, _, _ = run("a_bootstrap_replicate_route_2", lambda: fes._replicate_free_energies(
         fes.bootstrap_indices[:2], "replicate"))
@@ -716,6 +756,9 @@ def phase8(torch, np, u_flag, N_k_flag, x_flag):
         return fes.get_fes(cent, reference_point="from-lowest")
 
     rk, _, _, _ = run("a_kde", kde, bandwidth=bw)
+    resident = dict(umbrella=dict(f_i=r["f_i"], df_i=r["df_i"], f_k=fes.mbar.f_k.copy(),
+                                  f_k_boots=f_k_boots, kde_f_i=rk["f_i"],
+                                  init_s=init_s, histogram_s=hist_s))
     sub = np.random.RandomState(SEED % 2**31).choice(x_n.size, 4096, replace=False)
     w_sub = fes.w_n[sub]
     budget = tkde._PAIRWISE_BUDGET_BYTES
@@ -797,8 +840,8 @@ def phase8(torch, np, u_flag, N_k_flag, x_flag):
     # target state K/2, 100 bins, the streamed branch; the peak above the
     # resident u_kn must stay below half of it (no N x (K + nbins) matrix)
     mid = u_flag.shape[0] // 2
-    fes, _, _, b_k1 = run("b_init", lambda: FES(u_flag, N_k_flag), u_kn_bytes=u_flag.nbytes,
-                          shape=list(u_flag.shape))
+    fes, b_init_s, b_init_peak, b_k1 = run("b_init", lambda: FES(u_flag, N_k_flag),
+                                           u_kn_bytes=u_flag.nbytes, shape=list(u_flag.shape))
     xb = x_flag.cpu().numpy()
     edges_b = np.linspace(xb.min() - 1e-6, xb.max() + 1e-6, FES_NBINS + 1)
     cent_b = 0.5 * (edges_b[1:] + edges_b[:-1])
@@ -820,8 +863,11 @@ def phase8(torch, np, u_flag, N_k_flag, x_flag):
     if not (checks_b["df_i_finite"] and checks_b["f_i_finite"] and b_k1 > 0
             and b_peak < u_flag.nbytes // 2):
         fail(f"phase 8b failed: {checks_b}")
+    resident["flagship"] = dict(f_i=rb["f_i"], df_i=rb["df_i"], init_s=b_init_s, histogram_s=b_s,
+                                peak=u_flag.nbytes + max(b_init_peak, b_peak))
     del fes
     torch.cuda.empty_cache()
+    return resident
 
 
 def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
@@ -830,7 +876,8 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
     unsampled, (d) anderson and BFGS.  ``single5``: phase 5's single-card
     base solution, factor, replicates and their stops at tol 1e-12.
     Returns K1's launches in (a)'s MBAR, the main path's run of this
-    phase."""
+    phase, and (c)'s replicates, n_fail, chunk width and peak above what
+    was resident, which phase 13 holds its host-resident run to."""
     from pymbar_tpu_torch import MBAR
     from pymbar_tpu_torch import solvers as tsolvers
     from pymbar_tpu_torch.mbar import bootstrap_counts
@@ -1040,12 +1087,7 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
         # (c) the umbrella configuration of phase 8 plus its unbiased state
         # (K0/2) x^2 as an unsampled state (N_k = 0), B = 16: the dd base
         # solve, then the batched replicates (no counts route: a state is empty)
-        K0, Ku = 20.0, 100.0
-        rng = np.random.RandomState(23)
-        centers = np.linspace(-3.0, 3.0, FES_KW) * 0.2
-        sig = 1.0 / (K0 + Ku)
-        x_n = (sig * Ku * centers[:, None]
-               + np.sqrt(sig) * rng.standard_normal((FES_KW, FES_NPW))).reshape(-1)
+        x_n, centers, K0, Ku = umbrella_x(np)
         x_dev = torch.as_tensor(x_n, device=dev)
         u_c = torch.cat([
             (K0 / 2.0) * x_dev[None, :] ** 2 + (Ku / 2.0) * (
@@ -1055,9 +1097,11 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
         del x_dev
         N_k_c = np.append(np.full(FES_KW, FES_NPW), 0)
         n_before = len(batched)
+        resident_c = torch.cuda.memory_allocated(dev)
         m_c, init_s, _ = run("c_umbrella_unbiased_mbar",
                              lambda: MBAR(u_c, N_k_c, n_bootstraps=FES_BOOT, rseed=SEED),
                              u_kn_bytes=u_c.nbytes, shape=list(u_c.shape))
+        peak_c = torch.cuda.max_memory_allocated(dev) - resident_c
         f_seq, seq_s, _ = run("c_umbrella_sequential_2", lambda: sequential(m_c, 2))
         seq_dev = float(np.abs(f_seq - m_c.f_k_boots[:2]).max())
         c_line = dict(
@@ -1074,6 +1118,9 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
             fail(f"the umbrella bootstrap did not take the batched route ({c_line})")
         if not (seq_dev <= 1.0e-9 and c_line["n_fail"] == 0 and np.isfinite(m_c.f_k_boots).all()):
             fail(f"umbrella replicates differ from the sequential route by {seq_dev:.3e}")
+        umbrella_boot = dict(f_k_boots=m_c.f_k_boots.copy(), n_fail=c_line["n_fail"],
+                             chunk=c_line["chunk_from_free_memory"], init_s=init_s,
+                             peak_above_resident=peak_c, u_kn_bytes=u_c.nbytes)
         del u_c, m_c
     finally:
         tsolvers.batched_bootstrap_solve = solve
@@ -1109,7 +1156,7 @@ def phase9(torch, np, u_flag, N_k_flag, fa_flag, f_flag, sigma_asym, single5):
              f_k_max_err_vs_adaptive=dev_d)
         if not (m_d.solver_results[0]["success"] and dev_d <= 1.0e-8):
             fail(f"{method}: f_k differs from the adaptive solve by {dev_d:.3e}")
-    return mesh_k1
+    return mesh_k1, umbrella_boot
 
 
 def phase10(torch, np, slice_state, f_slice, route_ms_1b):
@@ -1118,8 +1165,8 @@ def phase10(torch, np, slice_state, f_slice, route_ms_1b):
     for bit); ``f_slice``: phase 3's free energies; ``route_ms_1b``: phase
     1b's split-route median at the slice's shape.  Returns the shift's,
     K3's and K4's launches in (b)'s solve, the main path's run of this
-    phase, and each kernel's largest absolute error against its plain
-    version on the blocks of (a)."""
+    phase, each kernel's largest absolute error against its plain version
+    on the blocks of (a), and (b)'s solution with its wall and peak."""
     from pymbar_tpu_torch import MBAR
     from pymbar_tpu_torch.ops import wsum, wsum_split
     from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
@@ -1264,6 +1311,7 @@ def phase10(torch, np, slice_state, f_slice, route_ms_1b):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    solve10 = dict(s=solve_s, peak_once_sharded=peak, resident_once_sharded=seen["resident"])
     k1, split = wsum.WSUM_LAUNCHES, launches()
     block_bytes = 8 * SLICE_K * N_slice
     torch.cuda.empty_cache()
@@ -1327,7 +1375,7 @@ def phase10(torch, np, slice_state, f_slice, route_ms_1b):
     del u_kn
     torch.cuda.empty_cache()
     emit("10_mesh_2d", s=time.perf_counter() - t_phase)
-    return split, block_err
+    return split, block_err, dict(f=f2d, **solve10)
 
 def phase11(torch, np, flag_seed, flag, mesh4, single5, ex7):
     """A host-resident u_kn: MBAR(cpu_tensor, N_k, device="cuda") keeps
@@ -1338,8 +1386,8 @@ def phase11(torch, np, flag_seed, flag, mesh4, single5, ex7):
     against phase 4's f_k (``mesh4``); (d) the B = 64 counts route against
     phase 5's replicates (``single5``).  (b) The 6x problem, 1024 x 5,856
     per state (49.1 GB of f64), which the resident route cannot hold on
-    one card.  Returns K1's launches over the phase's runs, each counted
-    from zero."""
+    one card, then its 'svd' from host memory.  Returns K1's launches over
+    the phase's runs, each counted from zero, and the 'svd' wall."""
     from pymbar_tpu_torch import MBAR
     from pymbar_tpu_torch.ops import wsum, wsum_split
     from pymbar_tpu_torch.ops.mbar_core import mbar_gradient, stream_columns
@@ -1502,9 +1550,21 @@ def phase11(torch, np, flag_seed, flag, mesh4, single5, ex7):
     if not max(peak_big, peak_big_fe) < total:
         fail(f"the 6x problem's peak {max(peak_big, peak_big_fe)} reached the card's {total}")
     check_free_energies(resg, b["max_abs_z"], "6x host-resident")
-    del mg, resg, u_big
+    # 'svd' from host memory: W's R factor folded chunk by chunk (the whole
+    # W alone would be 49.1 GB on the card, and its QR's copy as much again)
+    res_svd, svd_s, peak_svd, _k, _sp = run(
+        lambda: mg.compute_free_energy_differences(uncertainty_method="svd"))
+    svd = dict(s=svd_s, peak=peak_svd, w_bytes=u_big.nbytes, card_total_memory=total,
+               ddelta_f_max_abs_diff_vs_svd_ew=float(
+                   np.abs(res_svd["dDelta_f"] - resg["dDelta_f"]).max()))
+    emit("11b_host_6x_svd", **svd)
+    np.testing.assert_almost_equal(res_svd["Delta_f"], resg["Delta_f"], decimal=8)
+    np.testing.assert_almost_equal(res_svd["dDelta_f"], resg["dDelta_f"], decimal=8)
+    if not peak_svd < total:
+        fail(f"'svd' of the 6x problem peaked at {peak_svd} B, the card's {total}")
+    del mg, resg, res_svd, u_big
     emit("11_wall", s=time.perf_counter() - t_phase, wsum_launches=k1_total)
-    return k1_total
+    return k1_total, svd_s
 
 
 def last_digit_unit(token):
@@ -1665,6 +1725,266 @@ def phase12(torch, np):
         fail("docs/torch_port.md has no block marked for the card")
     emit("12_wall", s=time.perf_counter() - t_phase, wsum_launches=k1_total)
     return k1_total
+
+
+def phase13(torch, np, flag_seed, fes8, boot9, svd6, slice_state, solve10, split10):
+    """The paths a host-resident u_kn took last: FES, the batched bootstrap,
+    'svd' and the 2-D mesh, each from a CPU tensor with device="cuda", held
+    to the resident route's results of phases 6, 8, 9 and 10 (``svd6``,
+    ``fes8``, ``boot9``, ``solve10`` with ``split10``, its split-kernel
+    launches).  (a) The umbrella cell, then the flagship histogram with its
+    peak; (b) the umbrella cell with its unbiased state unsampled, on the
+    batched route; (c) 'svd' at the flagship; (d) the slice streamed into
+    (2, 2) blocks of cuda:0 and solved.  Each run on its own line with its
+    wall, its peak above what was resident and its launches, every count
+    set to 0 just before it.  Returns (K1's launches over the phase's runs,
+    the shift's, K3's and K4's in (d)'s solve)."""
+    from pymbar_tpu_torch import FES, MBAR
+    from pymbar_tpu_torch import solvers as tsolvers
+    from pymbar_tpu_torch.ops import mbar_core, wsum, wsum_split
+    from pymbar_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    split_names = ("SHIFT_LAUNCHES", "DENOM_SUMS_LAUNCHES", "WSUM_DENOM_LAUNCHES")
+    t_phase = time.perf_counter()
+    k1_total = 0
+
+    def nan_max_diff(a, b, rel=False):
+        """max |a - b| (relative to |b| with ``rel``) where both are numbers;
+        inf if a and b are NaN in other places."""
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            return float("inf")
+        d = np.abs(a - b)[~np.isnan(a)]
+        if rel:
+            d = d / np.maximum(np.abs(b[~np.isnan(b)]), np.finfo(np.float64).tiny)
+        return float(d.max()) if d.size else 0.0
+
+    def run(label, fn, **fields):
+        """(fn's result, wall, peak above resident, K1 launches, split
+        launches), every count set to 0 just before fn; one line each."""
+        nonlocal k1_total
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        wsum.WSUM_LAUNCHES = 0
+        for n in split_names:
+            setattr(wsum_split, n, 0)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - resident
+        k1, split = wsum.WSUM_LAUNCHES, [getattr(wsum_split, n) for n in split_names]
+        k1_total += k1
+        emit(f"13{label}", s=wall, peak_above_resident=peak, wsum_launches=k1,
+             split_launches=split, **fields)
+        return out, wall, peak, k1, split
+
+    def to_host(u_dev):
+        """A card tensor moved to host memory (pageable, as torch.from_numpy
+        gives it), the card copy freed by the caller's del."""
+        out = u_dev.cpu()
+        torch.cuda.synchronize()
+        return out
+
+    # ---- (a) phase 8's umbrella cell, u_kn made on the card as phase 8
+    # makes it (the same bits), then kept in host memory
+    x_n, centers, K0, Ku = umbrella_x(np)
+    u_n = (K0 / 2.0) * x_n**2
+    N_k = np.full(FES_KW, FES_NPW, dtype=np.int64)
+    x_dev = torch.as_tensor(x_n, device=dev)
+    c_dev = torch.as_tensor(centers, device=dev)[:, None]
+    u_host = to_host((K0 / 2.0) * x_dev[None, :] ** 2 + (Ku / 2.0) * (x_dev[None, :] - c_dev) ** 2)
+    torch.cuda.empty_cache()
+    edges = np.linspace(x_n.min() - 1e-6, x_n.max() + 1e-6, FES_NBINS + 1)
+    cent = 0.5 * (edges[1:] + edges[:-1])
+    hist = dict(bin_edges=edges)
+    ref = fes8["umbrella"]
+
+    fes, init_s, init_peak, _k, _sp = run("a_umbrella_init",
+                                          lambda: FES(u_host, N_k, device="cuda"),
+                                          u_kn_bytes=u_host.nbytes)
+
+    def histogram():
+        fes.generate_fes(u_n, x_n, histogram_parameters=hist)
+        return fes.get_fes(cent, reference_point="from-lowest", uncertainty_method="analytical")
+
+    def bootstrap():
+        fes.generate_fes(u_n, x_n, histogram_parameters=hist, n_bootstraps=FES_BOOT,
+                         seed=SEED % 2**31)
+        return fes.bootstrap_route, fes.f_k_boots.copy()
+
+    def kde():
+        fes.generate_fes(u_n, x_n, fes_type="kde",
+                         kde_parameters={"bandwidth": 0.5 * (edges[1] - edges[0])})
+        return fes.get_fes(cent, reference_point="from-lowest")["f_i"]
+
+    r, hist_s, hist_peak, _k, _sp = run("a_umbrella_histogram", histogram)
+    (boot_route, f_boots), boot_s, boot_peak, _k, _sp = run("a_umbrella_bootstrap", bootstrap,
+                                                            n_bootstraps=FES_BOOT)
+    f_kde, kde_s, _p, _k, _sp = run("a_umbrella_kde", kde)
+    a = dict(
+        host_resident=fes.u_kn is u_host and fes.mbar.device.type == "cuda",
+        route=mesh_route(fes.mbar)[0], bootstrap_route=boot_route,
+        resident_init_s=ref["init_s"], resident_histogram_s=ref["histogram_s"],
+        f_k_bit_identical=bool(np.array_equal(fes.mbar.f_k, ref["f_k"])),
+        f_i_max_err=nan_max_diff(r["f_i"], ref["f_i"]),
+        df_i_max_rel_err=nan_max_diff(r["df_i"], ref["df_i"], rel=True),
+        f_k_boots_max_err=float(np.abs(f_boots - ref["f_k_boots"]).max()),
+        kde_f_i_max_err=nan_max_diff(f_kde, ref["kde_f_i"]),
+    )
+    emit("13a_umbrella_checks", **a)
+    if not (a["host_resident"] and a["route"] in ("dd", "mesh")
+            and a["bootstrap_route"] == ("counts" if a["route"] == "dd" else "replicate")):
+        fail(f"the host-resident umbrella FES left the resident route's path: {a}")
+    if not (a["f_i_max_err"] <= 1e-12 and a["df_i_max_rel_err"] <= 1e-10
+            and a["f_k_boots_max_err"] <= 1e-12 and a["kde_f_i_max_err"] <= 1e-12):
+        fail(f"the host-resident umbrella FES differs from phase 8's: {a}")
+    del fes, u_host
+
+    # the flagship histogram (phase 8b) from host memory: u_kn remade from
+    # phase 2's seed on the card, moved to the host and freed there
+    u_kn, N_k_f, _fa, x_f = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
+                                        torch.Generator(device=dev).manual_seed(flag_seed), dev)
+    u_flag = to_host(u_kn)
+    del u_kn
+    torch.cuda.empty_cache()
+    mid = FLAGSHIP_K // 2
+    xb = x_f.cpu().numpy()
+    edges_b = np.linspace(xb.min() - 1e-6, xb.max() + 1e-6, FES_NBINS + 1)
+    cent_b = 0.5 * (edges_b[1:] + edges_b[:-1])
+    ref_f = fes8["flagship"]
+    fes, fi_s, fi_peak, _k, _sp = run("a_flagship_init",
+                                      lambda: FES(u_flag, N_k_f, device="cuda"),
+                                      u_kn_bytes=u_flag.nbytes)
+
+    def flagship_histogram():
+        fes.generate_fes(u_flag[mid], x_f, histogram_parameters=dict(bin_edges=edges_b))
+        return fes.get_fes(cent_b, reference_point="from-lowest", uncertainty_method="analytical")
+
+    rf, fh_s, fh_peak, _k, _sp = run("a_flagship_histogram", flagship_histogram, nbins=FES_NBINS)
+    host_peak = max(fi_peak, fh_peak)
+    af = dict(
+        host_resident=fes.u_kn is u_flag, init_s=fi_s, histogram_s=fh_s,
+        resident_init_s=ref_f["init_s"], resident_histogram_s=ref_f["histogram_s"],
+        peak=host_peak, resident_peak_with_u_kn=ref_f["peak"],
+        peak_ratio=host_peak / ref_f["peak"],
+        f_i_max_err=nan_max_diff(rf["f_i"], ref_f["f_i"]),
+        df_i_max_rel_err=nan_max_diff(rf["df_i"], ref_f["df_i"], rel=True),
+    )
+    emit("13a_flagship_checks", **af)
+    if not (af["host_resident"] and af["f_i_max_err"] <= 1e-12 and af["df_i_max_rel_err"] <= 1e-10):
+        fail(f"the host-resident flagship histogram differs from phase 8b's: {af}")
+    if not host_peak <= 0.6 * ref_f["peak"]:
+        fail(f"the flagship histogram from the host peaked at {host_peak} B, above 0.6 x the "
+             f"resident route's {ref_f['peak']} B")
+
+    # ---- (c) 'svd' at the flagship from host memory (the FES's MBAR)
+    res_svd, svd_s, svd_peak, _k, _sp = run(
+        "c_flagship_svd", lambda: fes.mbar.compute_free_energy_differences(
+            uncertainty_method="svd"),
+        phase6_s=svd6["s"], phase6_peak=svd6["peak"], pr6_whole_w_peak=SVD_WHOLE_W_PEAK)
+    res_ew, _s, _p, _k, _sp = run("c_flagship_svd_ew",
+                                  lambda: fes.mbar.compute_free_energy_differences())
+    svd_dev = float(np.abs(res_svd["dDelta_f"] - res_ew["dDelta_f"]).max())
+    emit("13c_svd_checks", ddelta_f_max_abs_diff_vs_svd_ew=svd_dev, peak=svd_peak,
+         half_whole_w_peak=SVD_WHOLE_W_PEAK / 2)
+    np.testing.assert_almost_equal(res_svd["Delta_f"], res_ew["Delta_f"], decimal=8)
+    np.testing.assert_almost_equal(res_svd["dDelta_f"], res_ew["dDelta_f"], decimal=8)
+    if not svd_peak < SVD_WHOLE_W_PEAK / 2:
+        fail(f"'svd' from the host peaked at {svd_peak} B")
+    del fes, u_flag, x_f, res_svd, res_ew
+    torch.cuda.empty_cache()
+
+    # ---- (b) the umbrella cell with its unbiased state unsampled (phase
+    # 9c's 545 MB, made as there), B = 16 on the batched route from host
+    # memory, at phase 9c's chunk width (the same working set)
+    u_c = to_host(torch.cat([(K0 / 2.0) * x_dev[None, :] ** 2 + (Ku / 2.0) * (
+        x_dev[None, :] - c_dev) ** 2, (K0 / 2.0) * x_dev[None, :] ** 2]))
+    del x_dev, c_dev
+    torch.cuda.empty_cache()
+    N_k_c = np.append(N_k, 0)
+    gathered, solved = [], []
+    solve_fn, chunk_fn, gather_fn = (tsolvers.batched_bootstrap_solve, tsolvers._boot_chunk,
+                                     tsolvers._gather_replicates)
+
+    def solve(*args, **kw):
+        out = solve_fn(*args, **kw)
+        solved.append(out[1])
+        return out
+
+    def gather(u, *args):
+        gathered.append(u.device.type)
+        return gather_fn(u, *args)
+
+    tsolvers.batched_bootstrap_solve, tsolvers._gather_replicates = solve, gather
+    tsolvers._boot_chunk = lambda *args: boot9["chunk"]
+    try:
+        m_c, b_s, b_peak, _k, _sp = run(
+            "b_umbrella_unbiased_batched",
+            lambda: MBAR(u_c, N_k_c, n_bootstraps=FES_BOOT, rseed=SEED, device="cuda"),
+            u_kn_bytes=u_c.nbytes, chunk=boot9["chunk"])
+    finally:
+        tsolvers.batched_bootstrap_solve, tsolvers._boot_chunk = solve_fn, chunk_fn
+        tsolvers._gather_replicates = gather_fn
+    # the two staging buffers of stream_columns, one column chunk each
+    K_c, N_c = u_c.shape
+    staging = 2 * 8 * K_c * min(N_c, mbar_core._CHUNK_BYTES // (8 * K_c))
+    bb = dict(
+        host_resident=m_c.u_kn is u_c, batched_calls=len(solved), gathered_from=sorted(set(gathered)),
+        n_fail=solved[0] if solved else None, resident_n_fail=boot9["n_fail"],
+        resident_init_s=boot9["init_s"], peak=b_peak, staging_bytes=staging,
+        resident_peak_above_u_kn=boot9["peak_above_resident"],
+        resident_peak_with_u_kn=boot9["peak_above_resident"] + boot9["u_kn_bytes"],
+        f_k_boots_max_err=float(np.abs(m_c.f_k_boots - boot9["f_k_boots"]).max()),
+    )
+    emit("13b_batched_checks", **bb)
+    if not (bb["host_resident"] and bb["batched_calls"] == 1 and bb["gathered_from"] == ["cpu"]
+            and bb["n_fail"] == bb["resident_n_fail"] and bb["f_k_boots_max_err"] <= 1e-12):
+        fail(f"the batched bootstrap from the host differs from phase 9c's: {bb}")
+    if not b_peak <= boot9["peak_above_resident"] + staging:
+        fail(f"the batched bootstrap from the host held more than phase 9c's working set and "
+             f"the staging buffers: {bb}")
+    del m_c, u_c
+
+    # ---- (d) the slice (phase 3's u_kn, remade bit for bit) in host
+    # memory, streamed into (2, 2) blocks of cuda:0 and solved as phase 10b
+    gen = torch.Generator(device=dev)
+    gen.set_state(slice_state)
+    u_kn, N_k_s, _fa, _x = oscillators(torch, SLICE_K, SLICE_NPK, gen, dev)
+    del _x
+    u_slice = to_host(u_kn)
+    del u_kn
+    torch.cuda.empty_cache()
+    mesh = sharding.mesh_2d(2, 2, device=dev)
+    block_bytes = 8 * u_slice.shape[0] * u_slice.shape[1]
+    blocks, split_s, split_peak, _k, _sp = run(
+        "d_slice_stream_2d", lambda: sharding.stream_shard_planes_2d(
+            u_slice, N_k_s, np.zeros(SLICE_K), mesh),
+        mesh=[2, 2], u_kn_bytes=u_slice.nbytes, block_bytes=block_bytes)
+    hi, lo = blocks[0], blocks[1]
+    del blocks
+    (f2d, info), solve_s, solve_peak, k1_d, split_d = run(
+        "d_slice_solve_2d", lambda: sharding.sharded2d_solve_mbar_dd(hi, lo, N_k_s, mesh=mesh))
+    d = dict(
+        split_s=split_s, split_gb_per_s=u_slice.nbytes / split_s / 1e9, split_peak=split_peak,
+        resident_route_holds=3 * block_bytes, solve_s=solve_s, resident_solve_s=solve10["s"],
+        converged=info["converged"], f_max_err_vs_phase10b=float(np.abs(f2d - solve10["f"]).max()),
+        split_launches=split_d, phase10b_split_launches=list(split10), wsum_launches=k1_d,
+    )
+    emit("13d_mesh_2d_checks", **d)
+    if not (info["converged"] and d["f_max_err_vs_phase10b"] <= 1e-12):
+        fail(f"the 2-D solve from host memory differs from phase 10b's: {d}")
+    if k1_d != 0 or split_d != list(split10):
+        fail(f"the 2-D solve from host memory launched K1 {k1_d} times and the split kernels "
+             f"{split_d} (phase 10b: {list(split10)})")
+    if not split_peak < 1.5 * block_bytes:
+        fail(f"the streamed 2-D split peaked at {split_peak} B for {block_bytes} B of blocks")
+    del hi, lo, u_slice
+    torch.cuda.empty_cache()
+    emit("13_wall", s=time.perf_counter() - t_phase, wsum_launches=k1_total)
+    return k1_total, split_d
 
 
 def main():
@@ -2739,9 +3059,14 @@ def main():
         lambda: mbar.compute_free_energy_differences(uncertainty_method="svd-ew"))
     svd_dev = float(np.abs(res_svd["dDelta_f"] - res_ew["dDelta_f"]).max())
     emit("6_svd", s=svd_s, svd_ew_s=ew_s, max_memory_allocated=svd_peak,
-         ddelta_f_max_abs_diff_vs_svd_ew=svd_dev, max_abs_z=max_abs_z(res_svd, fa))
+         pr6_whole_w_peak=SVD_WHOLE_W_PEAK, ddelta_f_max_abs_diff_vs_svd_ew=svd_dev,
+         max_abs_z=max_abs_z(res_svd, fa))
     np.testing.assert_almost_equal(res_svd["Delta_f"], res_ew["Delta_f"], decimal=8)
     np.testing.assert_almost_equal(res_svd["dDelta_f"], res_ew["dDelta_f"], decimal=8)
+    if not svd_peak < SVD_WHOLE_W_PEAK / 2:
+        fail(f"'svd' peaked at {svd_peak} B, not under half of the whole-W route's "
+             f"{SVD_WHOLE_W_PEAK:g} B")
+    svd6 = dict(s=svd_s, peak=svd_peak)
 
     def estimators():
         n0, n1 = N_k[0], N_k[0] + N_k[1]
@@ -2783,31 +3108,36 @@ def main():
     ck_dir.cleanup()
     del boot_mbar
     torch.cuda.empty_cache()
-    phase8(torch, np, u_kn, N_k, x_n)
-    mesh_boot_k1 = phase9(torch, np, u_kn, N_k, fa, f_flag, sigma_asym, single5)
+    fes8 = phase8(torch, np, u_kn, N_k, x_n)
+    mesh_boot_k1, boot9 = phase9(torch, np, u_kn, N_k, fa, f_flag, sigma_asym, single5)
     del u_kn, x_n
     torch.cuda.empty_cache()
-    mesh2d_split, mesh2d_err = phase10(torch, np, slice_state, f_slice, route_ms)
+    mesh2d_split, mesh2d_err, solve10 = phase10(torch, np, slice_state, f_slice, route_ms)
     for name, e in mesh2d_err.items():
         err[name] = max(err[name], e)
-    host_k1 = phase11(torch, np, flag_seed, flag11, mesh11, single5, ex7)
+    host_k1, svd11_s = phase11(torch, np, flag_seed, flag11, mesh11, single5, ex7)
     surface_k1 = phase12(torch, np)
+    t13 = time.perf_counter()
+    host13_k1, split13 = phase13(torch, np, flag_seed, fes8, boot9, svd6, slice_state, solve10,
+                                 mesh2d_split)
+    t13 = time.perf_counter() - t13
+    emit("13_added_wall", s=t13 + svd11_s, phase13_s=t13, phase11b_svd_s=svd11_s)
 
     # ---- the kernels line: launches from each one's main-path run
     K, Nf, Ns = FLAGSHIP_K, N_flag, N_slice
     KS = SLICE_K
     rows = [
         ("wsum_dd", "pymbar_tpu_torch/csrc/wsum.cu", "pymbar_tpu/ops/pallas_kernels.py:584",
-         flag_launches + mesh_boot_k1 + host_k1 + surface_k1,
+         flag_launches + mesh_boot_k1 + host_k1 + surface_k1 + host13_k1,
          bound(8 * K * Nf + 8 * K, 8 * K, 6 * K * Nf, F64_OPS_PER_S)),
         ("column_shift", "pymbar_tpu_torch/csrc/wsum_split.cu",
-         "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0] + mesh2d_split[0],
+         "pymbar_tpu/ops/pallas_kernels.py:692", slice_split[0] + mesh2d_split[0] + split13[0],
          bound(4 * KS * Ns + 4 * KS, 4 * Ns, 2 * KS * Ns, F32_OPS_PER_S)),
         ("denom_sums_dd", "pymbar_tpu_torch/csrc/wsum_split.cu",
-         "pymbar_tpu/ops/pallas_kernels.py:785", slice_split[1] + mesh2d_split[1],
+         "pymbar_tpu/ops/pallas_kernels.py:785", slice_split[1] + mesh2d_split[1] + split13[1],
          bound(8 * KS * Ns + 8 * KS + 4 * Ns, 8 * Ns, 5 * KS * Ns, F64_OPS_PER_S)),
         ("wsum_denom_dd", "pymbar_tpu_torch/csrc/wsum_split.cu",
-         "pymbar_tpu/ops/pallas_kernels.py:890", slice_split[2] + mesh2d_split[2],
+         "pymbar_tpu/ops/pallas_kernels.py:890", slice_split[2] + mesh2d_split[2] + split13[2],
          bound(8 * KS * Ns + 8 * KS + 12 * Ns, 8 * KS, 6 * KS * Ns, F64_OPS_PER_S)),
         ("logden_dd", "pymbar_tpu_torch/csrc/lognum.cu", "pymbar_tpu/ops/pallas_kernels.py:189",
          mesh_launches["LOGDEN_LAUNCHES"], bound(8 * K * Nf + 8 * K, 8 * Nf, 5 * K * Nf, F64_OPS_PER_S)),

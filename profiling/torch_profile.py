@@ -46,9 +46,14 @@ times, three times each after one warm-up: the BAR chain
 (``_initialize_with_bar``), ``Log_W_nk`` on the card alone and with its
 copy to the host, ``compute_effective_sample_number``, ``compute_overlap``
 and the 'svd' Theta with its steps (W on the card, ``check_w_normalized``,
-``MBAR._svd_sigma_v``: the QR of W and the SVD of R); then
-``torch.linalg.svd`` of W once, the direct factorization the QR route
-stands in for.
+the R of W's row blocks folded by QRs, ``mbar_core._tsqr_rows``, and the
+SVD of R, ``MBAR._sigma_v``); then ``torch.linalg.svd`` of W once, the direct factorization the
+QR route stands in for; then the R factor of W by one Householder QR of
+the whole W against the streamed fold over row blocks of 128 MB, 512 MB
+and 2 GB (``mbar_core._tsqr_rows``: each block's R, stacked under the
+running R and refactored) and against a fold that refactors the running
+R stacked on the block itself, each in turns after a warm-up, with its
+peak memory.
 
 ``expectations`` measures ``mbar._AUG_STREAM_BYTES``: at (K, samples per
 state) = (128, 8), (512, 4), (1024, 2), (1024, 12) and (1024, 122) (1.05
@@ -389,7 +394,7 @@ def profile_bootstrap(torch, card):
 
 def profile_diagnostics(torch, card):
     from pymbar_tpu_torch import MBAR
-    from pymbar_tpu_torch.ops.mbar_core import mbar_log_W_nk
+    from pymbar_tpu_torch.ops.mbar_core import _tsqr_rows, mbar_log_W_nk
     from pymbar_tpu_torch.utils import check_w_normalized
 
     K, npk, _ = CONFIGS["flagship"]
@@ -410,7 +415,7 @@ def profile_diagnostics(torch, card):
         "theta_svd_ew_s": lambda: m._compute_theta_streamed("svd-ew"),
         "svd_w_on_card_s": w_on_card,
         "svd_check_w_normalized_s": lambda: check_w_normalized(state["W"], N_k),
-        "svd_sigma_v_s": lambda: m._svd_sigma_v(state["W"]),
+        "svd_sigma_v_s": lambda: m._sigma_v(_tsqr_rows(state["W"])),
     }
     walls = {name: [] for name in steps}
     peak = {}
@@ -425,12 +430,63 @@ def profile_diagnostics(torch, card):
                           max_memory_allocated=peak)), flush=True)
     torch.cuda.empty_cache()
     direct_s, (_U, S, _Vh) = timed(torch, lambda: torch.linalg.svd(state["W"], full_matrices=False))
-    R_S = m._svd_sigma_v(state["W"])[0]
+    R_S = m._sigma_v(_tsqr_rows(state["W"]))[0]
     print(json.dumps(dict(config="diagnostics", card=card, direct_svd_s=direct_s,
                           sigma_max_rel_diff_qr_vs_direct=float(((R_S - S).abs() / S.max()).max()))),
           flush=True)
-    del u, m, state, _U, S, _Vh
+    del _U, S, _Vh
     torch.cuda.empty_cache()
+    profile_tsqr(torch, card, state.pop("W"))
+    del u, m, state
+    torch.cuda.empty_cache()
+
+
+def profile_tsqr(torch, card, W):
+    """The R factor of W (N, K) by the whole QR and by row-block folds."""
+    from pymbar_tpu_torch.ops import mbar_core
+
+    def fold_stacked(block_bytes):
+        rows = max(1, block_bytes // (8 * W.shape[1]))
+        R = None
+        for s in range(0, W.shape[0], rows):
+            R = torch.linalg.qr(W[s:s + rows] if R is None else torch.cat([R, W[s:s + rows]]),
+                                mode="r")[1]
+        return R
+
+    def fold(block_bytes):
+        def run():
+            old = mbar_core._CHUNK_BYTES
+            mbar_core._CHUNK_BYTES = block_bytes
+            try:
+                return mbar_core._tsqr_rows(W)
+            finally:
+                mbar_core._CHUNK_BYTES = old
+        return run
+
+    variants = {"whole_qr": lambda: torch.linalg.qr(W, mode="r")[1]}
+    for mb in (128, 512, 2048):
+        variants[f"fold_{mb}MB"] = fold(mb * 2**20)
+        variants[f"fold_stacked_{mb}MB"] = lambda b=mb * 2**20: fold_stacked(b)
+    walls = {name: [] for name in variants}
+    peak = {}
+    resident = torch.cuda.memory_allocated()
+    R_ref = None
+    dev_sigma = {}
+    for rep in range(3):
+        order = list(variants) if rep % 2 == 0 else list(reversed(variants))
+        for name in order:
+            torch.cuda.reset_peak_memory_stats()
+            wall, R = timed(torch, variants[name])
+            peak[name] = torch.cuda.max_memory_allocated() - resident
+            if rep:
+                walls[name].append(wall)
+            S = torch.linalg.svdvals(R)
+            if R_ref is None:
+                R_ref = S
+            dev_sigma[name] = float(((S - R_ref).abs() / R_ref.max()).max())
+            del R
+    print(json.dumps(dict(config="tsqr", card=card, N=W.shape[0], K=W.shape[1], walls=walls,
+                          peak_above_w=peak, sigma_max_rel_diff=dev_sigma)), flush=True)
 
 
 def profile_expectations(torch, card):

@@ -12,15 +12,19 @@ reference ``pymbar/fes.py`` class ``FES`` (pymbar 4.x fes.py:47-2477):
 * Metropolis MC sampling of the spline-coefficient posterior with
   decorrelation and Bayesian confidence intervals
 
-``u_kn`` is one float64 tensor shared with the internal
-:class:`pymbar_tpu_torch.MBAR`: a tensor stays where it is, numpy goes to
-``device`` (default: ``PYMBAR_TPU_TORCH_DEVICE`` when set, else the CUDA
-card; without one, pass ``device="cpu"`` or set the variable to "cpu").
-The device work runs there: the MBAR solve, the per-sample log weights of
-the target state (one reduction over u_kn's column chunks), the histogram's
-augmented covariance (streamed Gram, or the materialized weights below
-``mbar._AUG_STREAM_BYTES``), bootstrap replicate solves and the KDE.  The
-histogram bookkeeping, the spline fits and the MC chain are host
+``u_kn`` is one tensor shared with the internal
+:class:`pymbar_tpu_torch.MBAR`, placed as MBAR places it: a tensor stays
+where it is, numpy goes to ``device`` (default: ``PYMBAR_TPU_TORCH_DEVICE``
+when set, else the CUDA card; without one, pass ``device="cpu"`` or set the
+variable to "cpu"), and a CPU tensor with a CUDA ``device`` stays in host
+memory, its column chunks streamed to the card by every pass
+(``mbar_core.stream_columns``), as the JAX package keeps a numpy u_kn on
+the host.  The device work runs on ``self.mbar.device``: the MBAR solve,
+the per-sample log weights of the target state (one reduction over u_kn's
+column chunks), the histogram's augmented covariance (streamed Gram, or
+the materialized weights below ``mbar._AUG_STREAM_BYTES``), bootstrap
+replicate solves (only their columns reach the device) and the KDE.
+The histogram bookkeeping, the spline fits and the MC chain are host
 numpy/scipy, as in the JAX package; only w_n comes from the device.
 
 Known reference bugs intentionally fixed rather than reproduced (as in the
@@ -48,11 +52,11 @@ from pymbar_tpu_torch.kde import GaussianKDE
 from pymbar_tpu_torch.mbar import (
     MBAR,
     _host,
-    _u_tensor,
+    _place,
     _unnormalized_log_weights,
     bootstrap_counts,
 )
-from pymbar_tpu_torch.ops.mbar_core import _col_chunks, _logden_direct
+from pymbar_tpu_torch.ops.mbar_core import _logden_direct, stream_columns
 from pymbar_tpu_torch.solvers import (
     DEFAULT_SOLVER_PROTOCOL,
     _solve_mbar_for_all_states,
@@ -66,9 +70,10 @@ logger = logging.getLogger(__name__)
 __all__ = ["FES"]
 
 
-def _hist_aug_gram(u_kn, u_n, flabel, f_bins, sampled, f_k, N_k, nbins):
+def _hist_aug_gram(u_kn, u_n, flabel, f_bins, sampled, f_k, N_k, nbins, dev):
     """(K+nbins)^2 Gram of the histogram-augmented weight matrix, streamed
-    over u_kn's column chunks on its device, in float64.
+    over u_kn's column chunks on ``dev`` (:func:`stream_columns`: a host
+    u_kn's chunks uploaded one at a time), in float64.
 
     The bin pseudo-state columns are disjoint selections of the target
     state's weights, B[n, l] = exp(log w_n + f_l) 1[flabel_n = l] in (0, 1],
@@ -80,10 +85,9 @@ def _hist_aug_gram(u_kn, u_n, flabel, f_bins, sampled, f_k, N_k, nbins):
     ``_hist_aug_gram_scan``.  ``flabel`` (N,) holds each sample's bin column
     (-1: none), ``f_bins`` the bins' f, ``sampled`` the states with samples,
     whose N_k and f_k form the log-denominator.  Returns the (m, m) Gram as
-    a float64 tensor on u_kn's device.
+    a float64 tensor on ``dev``.
     """
     K = u_kn.shape[0]
-    dev = u_kn.device
     f_k = torch.as_tensor(np.asarray(f_k, dtype=np.float64), device=dev)
     N_k = np.asarray(N_k, dtype=np.float64)
     all_sampled = sampled.size == K
@@ -97,9 +101,10 @@ def _hist_aug_gram(u_kn, u_n, flabel, f_bins, sampled, f_k, N_k, nbins):
     G00 = torch.zeros((K, K), dtype=torch.float64, device=dev)
     G0B = torch.zeros((K, nbins), dtype=torch.float64, device=dev)
     gbb = torch.zeros(nbins, dtype=torch.float64, device=dev)
-    # a chunk builds nbins one-hot rows beside its K weight rows
-    for s, e in _col_chunks(u_kn, extra_rows=nbins):
-        u_c, fl = u_kn[:, s:e], flabel[s:e]
+    # a chunk builds nbins one-hot rows beside its K weight rows; a staging
+    # chunk is reused once the next is asked for, so its products end here
+    for s, e, u_c in stream_columns(u_kn, dev, extra_rows=nbins):
+        fl = flabel[s:e]
         ld = _logden_direct(u_c if sel is None else u_c.index_select(0, sel), N_s, f_s)
         W0 = (f_k[:, None] - u_c).sub_(ld[None, :]).exp_()
         # exp(log w_n + f_l) <= 1 by construction (f_l normalizes its bin);
@@ -137,7 +142,9 @@ class FES:
         ----------
         u_kn : np.ndarray or torch.Tensor, float, shape (K, N) or (K, K, N_max)
             Reduced potential of each sample in each sampled (biased) state.
-            A tensor stays on its device; numpy goes to ``device``.
+            A tensor stays on its device; numpy goes to ``device``; a CPU
+            tensor with a CUDA ``device`` stays in host memory (as in
+            :class:`pymbar_tpu_torch.MBAR`).
         N_k : np.ndarray, int, shape (K,)
             Samples per state.
         verbose : bool, optional, default False
@@ -148,9 +155,10 @@ class FES:
         timings : bool, optional, default True
             Return wall-time in :meth:`generate_fes`'s result dict.
         device : str or torch.device, optional
-            Where a numpy ``u_kn`` goes (default: ``PYMBAR_TPU_TORCH_DEVICE``
-            when set, else the CUDA card; without one, pass ``"cpu"``).
-            The internal MBAR and the KDE use the same device.
+            Where the work runs and a numpy ``u_kn`` goes (default:
+            ``PYMBAR_TPU_TORCH_DEVICE`` when set, else the CUDA card;
+            without one, pass ``"cpu"``).  The internal MBAR and the KDE use
+            the same device.
 
         Notes
         -----
@@ -173,15 +181,8 @@ class FES:
             logger.warning(f"Warning: parameter {key}={val} is unrecognized and unused.")
 
         self.N_k = np.array(N_k, dtype=np.int64)
-        if (torch.is_tensor(u_kn) and u_kn.device.type == "cpu" and device is not None
-                and torch.device(device).type == "cuda"):
-            raise ParameterError(
-                "FES keeps u_kn on the device it computes on: a CPU tensor with "
-                f"device={device!r} (MBAR's host-resident u_kn) is not supported "
-                "here; pass a CUDA tensor, numpy, or device='cpu'"
-            )
-        # one float64 tensor, shared with the internal MBAR
-        self.u_kn = _u_tensor(u_kn, self.N_k, device)
+        # one tensor, shared with the internal MBAR, which works on `dev`
+        self.u_kn, dev = _place(u_kn, self.N_k, device)
         K, N = self.u_kn.shape
 
         if np.sum(self.N_k) != N:
@@ -196,7 +197,7 @@ class FES:
         self.timings = bool(timings)
 
         if mbar_options is None:
-            fes_mbar = MBAR(self.u_kn, N_k)
+            fes_mbar = MBAR(self.u_kn, N_k, device=dev)
         else:
             mbar_options = dict(mbar_options)
             for o in (
@@ -226,6 +227,7 @@ class FES:
                 solver_protocol=mbar_options["solver_protocol"],
                 initialize=mbar_options["initialize"],
                 x_kindices=mbar_options["x_kindices"],
+                device=dev,
             )
 
         self.mbar = fes_mbar
@@ -406,7 +408,7 @@ class FES:
                 )
 
         # log w_n of the target state at every f (base and replicates), on
-        # u_kn's device, in one pass each
+        # the MBAR's device, in one pass each
         for b in range(n_bootstraps + 1):
             if b == 0:
                 log_w_nb = self._unnormalized_log_weights(None, self.mbar.f_k)
@@ -457,15 +459,18 @@ class FES:
         dd polish on the internal MBAR's planes from its f_k and chord
         factor (the counterpart of the JAX package's batched TPU branch).
         ``route="replicate"``: each solves on its gathered columns
-        ``u_kn[:, indices]`` warm from the base f_k: on a CUDA u_kn within
-        the internal MBAR's batched gate all at once by
+        ``u_kn[:, indices]`` warm from the base f_k: on a card within the
+        internal MBAR's batched gate all at once by
         :func:`pymbar_tpu_torch.solvers.batched_bootstrap_solve` (the JAX
         package's TPU branch), else in turn by ``_solve_mbar_for_all_states``
         under the default protocol (its off-TPU branch; ``n_fail`` is then
-        0, as there)."""
+        0, as there).  A host-resident u_kn never reaches the device whole:
+        the batched route copies each replicate's columns out of its
+        uploaded column chunks, the sequential one gathers them on the
+        host."""
         m = self.mbar
         if route == "counts":
-            uh, ul = stream_split_planes(m.u_kn)
+            uh, ul = stream_split_planes(m.u_kn, m.device)
             f_boots, n_fail, _info = bootstrap_polish_dd(
                 uh, ul, m.N_k, m.f_k, m.solver_results[0]["info"]["hinv"],
                 bootstrap_counts(all_indices, m.N),
@@ -474,12 +479,13 @@ class FES:
         if route != "replicate":
             raise ParameterError(f"unknown bootstrap route {route!r}")
         if m._batched_boot_sized():
-            return batched_bootstrap_solve(m.u_kn, m.N_k, m.f_k, all_indices)
+            return batched_bootstrap_solve(m.u_kn, m.N_k, m.f_k, all_indices, device=m.device)
         protocol = MBAR._resolve_protocol(None, DEFAULT_SOLVER_PROTOCOL, 10000)
         f_boots = np.zeros((len(all_indices), m.K))
         for b, indices in enumerate(all_indices):
+            cols = torch.as_tensor(indices, device=m.u_kn.device)
             f_boots[b], _results = _solve_mbar_for_all_states(
-                m.u_kn.index_select(1, torch.as_tensor(indices, device=m.device)),
+                m.u_kn.index_select(1, cols).to(m.device, torch.float64),
                 m.N_k, np.asarray(m.f_k), m.states_with_samples, protocol,
             )
         return f_boots, 0
@@ -488,11 +494,12 @@ class FES:
         """log w_n of the target state at free energies f_b:
         -logsumexp_k[f_b + u_n - u_kn] weighted by N_k (the f_k
         generalization of MBAR._computeUnnormalizedLogWeights, reference
-        mbar.py:1919-1934), as numpy.  One reduction over the resident u_kn
-        on its device; a replicate's values are those of its resampled
-        columns (``indices``; None: every sample once), gathered on the host,
-        since each column reduces alone."""
-        log_w = _unnormalized_log_weights(self.u_kn, self.u_n, self.mbar.N_k, f_b).cpu().numpy()
+        mbar.py:1919-1934), as numpy.  One reduction over u_kn's column
+        chunks on the MBAR's device; a replicate's values are those of its
+        resampled columns (``indices``; None: every sample once), gathered
+        on the host, since each column reduces alone."""
+        log_w = _unnormalized_log_weights(self.u_kn, self.u_n, self.mbar.N_k, f_b,
+                                          self.mbar.device).cpu().numpy()
         return log_w if indices is None else log_w[indices]
 
     # --------------------------- histogram ----------------------------------
@@ -1249,15 +1256,15 @@ class FES:
         N_k[0:K] = m.N_k
         flabel = self._bin_columns(histogram_data)
 
-        if m.u_kn.nbytes >= _mbar._AUG_STREAM_BYTES:
+        if m._u_bytes() >= _mbar._AUG_STREAM_BYTES:
             gram = _hist_aug_gram(m.u_kn, self.u_n, flabel, histogram_data["f"],
-                                  m.states_with_samples, m.f_k, m.N_k, nbins)
+                                  m.states_with_samples, m.f_k, m.N_k, nbins, m.device)
             return m._theta_svd_ew_lowrank(gram, N_k).cpu().numpy()
 
         dev = m.device
         W_nk = torch.zeros((m.N, K + nbins), dtype=torch.float64, device=dev)
         W_nk[:, 0:K] = m._W_nk_tensor()
-        log_w_n = _unnormalized_log_weights(m.u_kn, self.u_n, m.N_k, m.f_k)
+        log_w_n = _unnormalized_log_weights(m.u_kn, self.u_n, m.N_k, m.f_k, dev)
         n = torch.as_tensor(np.flatnonzero(flabel >= 0), device=dev)
         col = torch.as_tensor(flabel[flabel >= 0], device=dev)
         f_bins = torch.as_tensor(histogram_data["f"], dtype=torch.float64, device=dev)

@@ -21,15 +21,16 @@ A CPU tensor with a CUDA ``device`` is host-resident:
 ``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing, and
 every pass over u_kn streams its column chunks to the card through two
 pinned staging buffers (``mbar_core.stream_columns``): the dd split into
-the planes, the Gram of Theta, N_eff and the overlap, ``Log_W_nk`` and
-``W_nk`` (into host memory), the expectations' passes, the BAR and
-mean-reduced-potential starts (only what they gather).  The card then
-holds the dd planes and chunk-sized buffers, never the float64 matrix,
-except where a route reads it whole: a protocol other than "dd" (below
-the dd gate, or asked for) uploads it for the solve and frees it after;
-the expectations below ``_AUG_STREAM_BYTES`` and 'svd' (which factors
-the N x K W on the card) upload it too; replicates off the counts route
-are gathered on the host one by one and uploaded.  Theta's K x K algebra
+the planes, the Gram of Theta, N_eff and the overlap, 'svd' (W's R
+factor folded chunk by chunk), ``Log_W_nk`` and ``W_nk`` (into host
+memory), the expectations' passes, the BAR and mean-reduced-potential
+starts (only what they gather), the bootstrap replicates off the counts
+route (each replicate's columns copied on the card out of the uploaded
+column chunks).  The card then holds the dd planes and chunk-sized
+buffers, never the float64 matrix, except where a route reads it whole,
+as the JAX package's does: a protocol other than "dd" (below the dd gate,
+or asked for) uploads it for the solve and frees it after, and the
+expectations below ``_AUG_STREAM_BYTES`` upload it too.  Theta's K x K algebra
 runs where the Gram is: on the card through the rank-nnz form, on the
 CPU through the dense numpy eigh + pinv.  The expectations augment the
 states on ``self.device``: below ``_AUG_STREAM_BYTES`` of u_kn they build
@@ -47,6 +48,7 @@ from pymbar_tpu_torch.ops.mbar_core import (
     _log_w_blocks,
     _logden_direct,
     _same_device,
+    _tsqr_rows,
     _work_on,
     log_denominator_n,
     mbar_gram_normalization,
@@ -564,11 +566,11 @@ class MBAR:
         return self.device.type == "cuda" and self._u_bytes() >= _DD_ROUTE_BYTES
 
     def _batched_boot_sized(self):
-        """The batched bootstrap's gate: a CUDA u_kn of at most
-        _BATCHED_BOOT_BYTES (the CPU keeps the sequential route, as the JAX
-        package does off a TPU; a host-resident u_kn too, since the route
-        gathers (B, K, N) on the card)."""
-        return self.u_kn.is_cuda and self._u_bytes() <= _BATCHED_BOOT_BYTES
+        """The batched bootstrap's gate: work on a card, u_kn of at most
+        _BATCHED_BOOT_BYTES (host-resident or not: the route copies each
+        replicate's columns out of u_kn's column chunks on the card).  The
+        CPU keeps the sequential route, as the JAX package does off a TPU."""
+        return self.device.type == "cuda" and self._u_bytes() <= _BATCHED_BOOT_BYTES
 
     def _bootstrap_solve_batched(self, stage, verbose):
         """Every replicate solved batched on its resampled columns from the
@@ -587,6 +589,7 @@ class MBAR:
             gamma=float(options.get("gamma", 1.0)),
             tol=1.0e-12,
             verbose=verbose,
+            device=self.device,
         )
 
     def _state_indices(self):
@@ -961,22 +964,27 @@ class MBAR:
         Gram stays on the card for the rank-nnz form
         (:meth:`_theta_svd_ew_lowrank`), as the JAX package does on its
         accelerator; a CPU Gram takes the dense numpy path
-        (:meth:`_theta_from_gram`).  'svd' needs W itself and factors
-        exp(Log_W_nk) on ``self.device``
-        (:meth:`_computeAsymptoticCovarianceMatrix`).  Theta is returned as a
-        numpy array."""
+        (:meth:`_theta_from_gram`).  'svd' takes the same pass with W's R
+        factor in place of the Gram (a QR of each chunk's rows of W folded
+        into a K x K R, :func:`mbar_gram_normalization` with ``tsqr``), so
+        only K x K and one chunk are on ``self.device``; an assigned
+        Log_W_nk is factored as given
+        (:meth:`_computeAsymptoticCovarianceMatrix`).  Theta is returned as
+        a numpy array."""
         if method is None or method == "bootstrap":
             method = "svd-ew"
-        if method == "svd":
+        if method == "svd" and self._Log_W_nk_assigned:
             return self._computeAsymptoticCovarianceMatrix(
                 self._W_nk_tensor(), self.N_k, method="svd"
             )
-        if method not in ("svd-ew", "approximate"):
+        if method not in ("svd", "svd-ew", "approximate"):
             raise ParameterError(f"Method {method} unrecognized.")
         gram, colsum, rowstats = mbar_gram_normalization(
-            self.u_kn, self.N_k, self.f_k, device=self.device
+            self.u_kn, self.N_k, self.f_k, device=self.device, tsqr=method == "svd"
         )
         self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
+        if method == "svd":
+            return self._theta_svd(gram, self.N_k).cpu().numpy()
         return self._theta_from_gram(gram, self.N_k, method).cpu().numpy()
 
     # -------------------------------------------------------------------------
@@ -1026,11 +1034,11 @@ class MBAR:
         Notes
         -----
         Everything runs on ``self.device``; numpy inputs go there.  From
-        ``_AUG_STREAM_BYTES`` of ``u_kn`` up (and not for 'svd') the
-        machinery streams over u_kn's column chunks and no N x (K+NL+S)
-        matrix exists.  ``u_ln is self.u_kn`` (and, for entropy,
-        ``A_n is self.u_kn``) is used as an alias of the same tensor, never
-        copied.  Reference: ``pymbar.MBAR.compute_expectations_inner``
+        ``_AUG_STREAM_BYTES`` of ``u_kn`` up the machinery streams over
+        u_kn's column chunks and no N x (K+NL+S) matrix exists ('svd' too:
+        it folds the augmented rows of W into their R factor).  ``u_ln is
+        self.u_kn`` (and, for entropy, ``A_n is self.u_kn``) is used as an
+        alias of the same tensor, never copied.  Reference: ``pymbar.MBAR.compute_expectations_inner``
         (pymbar 4.x mbar.py:732-1030).
         """
         result_vals = self._expectations_inner(
@@ -1066,7 +1074,6 @@ class MBAR:
         NL = len(L_list)
         stream = (
             self._u_bytes() >= _AUG_STREAM_BYTES
-            and uncertainty_method != "svd"
             and (uncertainty_method != "bootstrap" or self.n_bootstraps > 0)
             # every public caller builds contiguous extra states; anything
             # else keeps the reference's materializing path
@@ -1335,12 +1342,14 @@ class MBAR:
             return f_aug, None, boot
 
         # ---- pass B: augmented Gram + normalization aggregates
+        # 'svd' factors the augmented W itself: the general rows, folded
         row0_b = (
-            _STRUCT_AUG_GRAM and u_ln_alias and S > 0 and NL == K and not a_alias
-            and iofs_mode == "zero"
+            _STRUCT_AUG_GRAM and method != "svd" and u_ln_alias and S > 0 and NL == K
+            and not a_alias and iofs_mode == "zero"
         )
         diag_b = (
-            _STRUCT_AUG_GRAM and u_ln_alias and S == K and NL == K and not row0_b
+            _STRUCT_AUG_GRAM and method != "svd" and u_ln_alias and S == K and NL == K
+            and not row0_b
             and lidx_mode == "identity" and (a_alias or iofs_mode == "identity")
         )
         if row0_b or diag_b:
@@ -1383,16 +1392,18 @@ class MBAR:
 
             gram, colsum, rowstats = mbar_gram_normalization(
                 self.u_kn, self.N_k, self.f_k, sampled=sampled, extra_rows=extra_rows,
-                device=dev,
+                device=dev, tsqr=method == "svd",
             )
             colsum = colsum.cpu().numpy()
 
         self._check_normalized_aggregates(colsum, rowstats)
         if method == "approximate":
             return f_aug, gram, boot
-        # default / svd-ew (the reference maps 'bootstrap' here too)
         N_aug = np.zeros(msize)
         N_aug[:K] = self.N_k
+        if method == "svd":
+            return f_aug, self._theta_svd(gram, N_aug), boot
+        # default / svd-ew (the reference maps 'bootstrap' here too)
         return f_aug, self._theta_from_gram(gram, N_aug, "svd-ew"), boot
 
     def compute_covariance_of_sums(self, d_ij, K, a):
@@ -1905,13 +1916,22 @@ class MBAR:
         return torch.from_numpy(cls._theta_svd_ew_from_gram(gram.numpy(), N_k))
 
     @staticmethod
-    def _svd_sigma_v(W):
-        """Sigma and V of the (N, K) W = U Sigma V^T, on W's device: an f64
-        Householder QR W = Q R (``mode="r"``, Q never formed), then the SVD
-        of the K x K R = U_R Sigma V^T, which has W's Sigma and V."""
-        R = torch.linalg.qr(W, mode="r")[1]
-        _U, S, Vh = torch.linalg.svd(R)
+    def _sigma_v(R):
+        """Sigma and V of W from the R factor of a QR of W: the SVD of R =
+        U_R Sigma V^T has W's Sigma and V."""
+        _U, S, Vh = torch.linalg.svd(R, full_matrices=False)
         return S, Vh.T
+
+    @classmethod
+    def _theta_svd(cls, R, N_k):
+        """The 'svd' covariance, Eq. D4, from W's R factor (reference
+        mbar.py:1818-1835): V Sigma pinv(I - Sigma V^T diag(N) V Sigma)
+        Sigma V^T, a tensor on R's device."""
+        S, V = cls._sigma_v(R)
+        VS = V * S[None, :]  # V @ Sigma
+        Np = torch.as_tensor(np.asarray(N_k, dtype=np.float64), dtype=R.dtype, device=R.device)
+        inner = torch.eye(S.numel(), dtype=R.dtype, device=R.device) - VS.T @ (Np[:, None] * VS)
+        return VS @ cls._pseudoinverse(inner) @ VS.T
 
     @staticmethod
     def _pseudoinverse(A, tol=1.0e-10):
@@ -1930,7 +1950,8 @@ class MBAR:
         * 'svd-ew'      -- Eq. D4/D5 from eigh(W^T W) (the default).
 
         W^T W is one matmul on W's device.  'svd' needs only Sigma and V of
-        W, from :meth:`_svd_sigma_v`, with no N x K factor besides W.
+        W, from the R of its row blocks (:meth:`_theta_svd`), with no N x K
+        factor besides W.
         """
         return self._asymptotic_theta(W, N_k, method).cpu().numpy()
 
@@ -1952,11 +1973,7 @@ class MBAR:
             return self._theta_from_gram(W.T @ W, N_k, method)
         if method != "svd":
             raise ParameterError(f"Method {method} unrecognized.")
-        S, V = self._svd_sigma_v(W)
-        VS = V * S[None, :]  # V @ Sigma
-        Np = torch.as_tensor(N_k, dtype=W.dtype, device=W.device)
-        inner = torch.eye(K, dtype=W.dtype, device=W.device) - VS.T @ (Np[:, None] * VS)
-        return VS @ self._pseudoinverse(inner) @ VS.T
+        return self._theta_svd(_tsqr_rows(W), N_k)
 
     @staticmethod
     def _theta_svd_ew_from_gram(gram, N_k):

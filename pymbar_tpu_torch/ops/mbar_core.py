@@ -80,11 +80,10 @@ def _col_ranges(rows, itemsize, start, stop, extra_rows=0):
     return [(s, min(stop, s + width)) for s in range(start, stop, width)]
 
 
-def _col_chunks(u, extra_rows=0):
-    """(start, stop) column ranges of at most ``_CHUNK_BYTES`` each, counting
-    ``extra_rows`` more rows of u's width that the caller builds per chunk.
-    The rows of every leading batch matrix of u count."""
-    return _col_ranges(math.prod(u.shape[:-1]), u.element_size(), 0, u.shape[-1], extra_rows)
+def _col_chunks(u):
+    """(start, stop) column ranges of at most ``_CHUNK_BYTES`` each.  The
+    rows of every leading batch matrix of u count."""
+    return _col_ranges(math.prod(u.shape[:-1]), u.element_size(), 0, u.shape[-1])
 
 
 def _as_tensor(u_kn):
@@ -127,7 +126,7 @@ def _work_on(u, device=None):
     return torch.float64, dev
 
 
-def stream_columns(u_kn, device=None, rows=None, start=0, stop=None):
+def stream_columns(u_kn, device=None, rows=None, start=0, stop=None, extra_rows=0):
     """Yield (s, e, u_c) over the column chunks of u_kn[..., start:stop]:
     u_c holds columns s:e, of the rows ``rows`` only when given (indices
     of u's second-to-last axis), on ``device`` (default: u's own).
@@ -137,7 +136,8 @@ def stream_columns(u_kn, device=None, rows=None, start=0, stop=None):
     through :func:`_staged_upload`: u_c is then a float64 staging tensor,
     valid until the next chunk is asked for.  Any other pair of devices
     moves each chunk with ``Tensor.to`` (float64).  A chunk spans at most
-    ``_CHUNK_BYTES``.
+    ``_CHUNK_BYTES`` over its rows and ``extra_rows`` more rows of the
+    work's dtype that the caller builds per chunk.
     """
     u = _as_tensor(u_kn)
     dt, dev = _work_on(u, device)
@@ -146,7 +146,7 @@ def stream_columns(u_kn, device=None, rows=None, start=0, stop=None):
         rows = torch.as_tensor(rows if torch.is_tensor(rows) else np.asarray(rows),
                                dtype=torch.int64, device=u.device)
     n_rows = math.prod(u.shape[:-2]) * (u.shape[-2] if rows is None else rows.numel())
-    ranges = _col_ranges(n_rows, dt.itemsize, start, stop)
+    ranges = _col_ranges(n_rows, dt.itemsize, start, stop, extra_rows)
     if u.device.type == "cpu" and dev.type == "cuda":
         yield from _staged_upload(u, dev, rows, ranges)
         return
@@ -489,8 +489,29 @@ def gram_f32_acc64(u_kn32, N_k32, f_k32, c32=None):
     return gram, colsum
 
 
+def _tsqr_fold(R, rows):
+    """The R factor of a tall-skinny QR after ``rows`` (n, m) are appended
+    to the rows R was folded from: the chunk's own R
+    (``torch.linalg.qr(mode="r")``, Q never formed), stacked under R and
+    refactored.  R^T R is the Gram of every row folded in, so the SVD of
+    R has their Sigma and V.  The result holds no reference to ``rows``
+    (a staging buffer may be reused once this returns)."""
+    R_c = torch.linalg.qr(rows, mode="r")[1]
+    return R_c if R is None else torch.linalg.qr(torch.cat([R, R_c]), mode="r")[1]
+
+
+def _tsqr_rows(W):
+    """The R factor of the (N, m) W, folded over row blocks of at most
+    ``_CHUNK_BYTES`` (:func:`_tsqr_fold`), on W's device: no N x m copy is
+    made besides W."""
+    R = None
+    for s, e in _col_ranges(W.shape[1], W.element_size(), 0, W.shape[0]):
+        R = _tsqr_fold(R, W[s:e])
+    return R
+
+
 def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
-                            extra_rows=None, observable=None, device=None):
+                            extra_rows=None, observable=None, device=None, tsqr=False):
     """(W^T W, colsum W, row-check stats) in one streamed f64 pass.
 
     The aggregates the covariance estimators (Eq. D4/D5, Kong 2003) and the
@@ -514,7 +535,10 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
       state k).  The pass then also returns ``(M1, M2, cA)`` with
       M1 = W (A o W)^T, M2 = (A o W)(A o W)^T and cA = sum_n (A o W).
 
-    The callbacks receive u's chunks on ``device``.
+    The callbacks receive u's chunks on ``device``.  With ``tsqr`` the
+    first result is the R factor of W (every row, extra rows too) folded
+    chunk by chunk (:func:`_tsqr_fold`) in place of the Gram: R^T R =
+    W^T W, and the SVD of R gives W's Sigma and V (the 'svd' covariance).
     """
     u_kn, N_k, f_k, dev = _prepare(_placed(u_kn, device), N_k, f_k, device)
     dt = N_k.dtype
@@ -545,10 +569,14 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
             c_a += wa.sum(dim=1)
         if extra_rows is not None:
             w = torch.cat([w, extra_rows(s, e, u_c, logden)])
-        if gram is None:
-            gram = torch.zeros((w.shape[0],) * 2, dtype=dt, device=dev)
+        if colsum is None:
             colsum = torch.zeros(w.shape[0], dtype=dt, device=dev)
-        gram += _matmul(w, w.T)
+            if not tsqr:
+                gram = torch.zeros((w.shape[0],) * 2, dtype=dt, device=dev)
+        if tsqr:
+            gram = _tsqr_fold(gram, w.T)
+        else:
+            gram += _matmul(w, w.T)
         colsum += w.sum(dim=1)
         bad = torch.abs(rowsum - 1.0) > tolerance
         cnt += bad.sum()

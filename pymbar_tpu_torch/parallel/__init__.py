@@ -5,7 +5,9 @@ along n across the mesh's devices, the per-state reductions and the dd
 polish's weight sums combined over it, and bootstrap replicates solved on
 the sharded planes; on a 2-D k x n mesh (``mesh_2d``), u_kn split along
 both axes, with the float64 Anderson solve (``sharded2d_solve_mbar``) and
-the dd solve (``sharded2d_solve_mbar_dd``, K3 and K4 on every block).
+the dd solve (``sharded2d_solve_mbar_dd``, K3 and K4 on every block),
+whose blocks ``stream_shard_planes_2d`` fills from u_kn's column chunks
+(from host memory too).
 """
 
 from pymbar_tpu_torch.parallel.sharding import (
@@ -15,6 +17,7 @@ from pymbar_tpu_torch.parallel.sharding import (
     mesh_2d,
     shard_dd_planes,
     stream_shard_planes,
+    stream_shard_planes_2d,
     shard_u_kn,
     shard_u_kn_2d,
     sharded2d_core_stats,
@@ -48,4 +51,5 @@ __all__ = [
     "sharded2d_core_stats",
     "sharded2d_solve_mbar",
     "sharded2d_solve_mbar_dd",
+    "stream_shard_planes_2d",
 ]

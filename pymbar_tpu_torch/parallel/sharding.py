@@ -45,12 +45,15 @@ from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
 from pymbar_tpu_torch.ops.lognum import lognum_fused_dd
 from pymbar_tpu_torch.ops.mbar_core import (
     _PAD_THRESHOLD,
+    _as_tensor as _u_as_tensor,
     _col_chunks,
     _matmul,
+    _same_device,
     _weights,
     gram_f32_acc64,
     log_denominator_n,
     self_consistent_update,
+    stream_columns,
 )
 from pymbar_tpu_torch.ops.wsum import _PAD_M, wsum_dd
 from pymbar_tpu_torch.ops.wsum_split import column_shift, denom_sums_dd, wsum_denom_dd
@@ -103,6 +106,7 @@ __all__ = [
     "sharded_bootstrap_polish_dd",
     "sharded_solve_mbar_dd",
     "shard_dd_planes_2d",
+    "stream_shard_planes_2d",
     "sharded2d_wsum_dd",
     "sharded2d_solve_mbar_dd",
     "sharded_solve_mbar_for_all_states",
@@ -489,6 +493,39 @@ def _blocks_2d(x, mesh, pad_value, dtype):
     return blocks, (kd * kb - K, nd * nb - N)
 
 
+def _stream_blocks_2d(u_kn, mesh, pads, dtype, planes_of):
+    """The kd x nd blocks of each plane that ``planes_of`` makes from u_kn's
+    column chunks, K and N padded to the mesh shape, with no K x N copy.
+
+    Column block j streams u_kn[:, j nb:(j + 1) nb] to
+    ``mesh.devices[0][j]`` (:func:`~pymbar_tpu_torch.ops.mbar_core.
+    stream_columns`: a host u_kn going to a card one chunk at a time
+    through pinned staging).  ``planes_of(u_c, view)`` turns a (K, nc)
+    chunk into one (K, nc) tensor per plane (``view``: u_c is a view of
+    u_kn, which it must not change); row block i of each is copied into
+    block (i, j) before the next chunk is asked for.  Plane p's blocks
+    are contiguous ``dtype`` tensors padded with ``pads[p]``, as
+    :func:`_blocks_2d` pads.  Returns (one nested list of blocks per
+    plane, (k_pad, n_pad)).
+    """
+    u = _u_as_tensor(u_kn)
+    kd, nd = _grid(mesh)
+    K, N = u.shape
+    kb, nb = -(-K // kd), -(-N // nd)
+    planes = [[[torch.full((kb, nb), pad, dtype=dtype, device=dev) for dev in row]
+               for row in mesh.devices] for pad in pads]
+    for j in range(nd):
+        c0, c1 = min(N, j * nb), min(N, (j + 1) * nb)
+        dev = mesh.devices[0][j]
+        view = _same_device(u.device, dev)
+        for s, e, u_c in stream_columns(u, dev, start=c0, stop=c1):
+            for blocks, part in zip(planes, planes_of(u_c, view)):
+                for i in range(kd):
+                    r0, r1 = min(K, i * kb), min(K, (i + 1) * kb)
+                    blocks[i][j][: r1 - r0, s - c0 : e - c0].copy_(part[r0:r1])
+    return planes, (kd * kb - K, nd * nb - N)
+
+
 def _np64(x):
     """A K-vector (numpy or tensor) as float64 numpy."""
     return np.asarray(x.cpu() if torch.is_tensor(x) else x, dtype=np.float64)
@@ -508,14 +545,17 @@ def _k_slices(x, mesh, kb, dtype):
 
 def shard_u_kn_2d(u_kn, N_k, f_k, mesh):
     """u_kn (numpy or tensor) as float64 blocks of a 2-D mesh, K and N
-    padded to the mesh shape.
+    padded to the mesh shape, read one column chunk at a time
+    (:func:`_stream_blocks_2d`: a host u_kn reaches a card through pinned
+    staging, and no K x N copy is made).
 
     Pad rows and pad columns get u = +inf (exp(-inf) adds exactly 0), pad
     states N_k = 0 and f_k = 0.  Returns (blocks, N_k_padded, f_k_padded,
     (k_pad, n_pad)): ``blocks[i][j]`` a contiguous float64 tensor on
     ``mesh.devices[i][j]``, the padded K-vectors float64 numpy.
     """
-    blocks, (k_pad, n_pad) = _blocks_2d(u_kn, mesh, float("inf"), torch.float64)
+    (blocks,), (k_pad, n_pad) = _stream_blocks_2d(
+        u_kn, mesh, (float("inf"),), torch.float64, lambda u_c, view: (u_c,))
     return (blocks, *_pad_vectors(N_k, f_k, k_pad), (k_pad, n_pad))
 
 
@@ -1156,6 +1196,32 @@ def shard_dd_planes_2d(u_hi, u_lo, N_k, f_k, mesh):
     return (hi, lo, *_pad_vectors(N_k, f_k, pads[0]), pads)
 
 
+def _split_chunk(u_c, view):
+    """The double-word split of a (K, nc) chunk under its own column min,
+    as (hi, lo) float32, by the arithmetic of
+    :func:`~pymbar_tpu_torch.solvers_large._split_into` (a view of u_kn is
+    copied to float64 first; any other chunk is split in place)."""
+    blk = u_c.to(torch.float64, copy=True) if view else u_c
+    blk.sub_(blk.amin(dim=0)[None, :])
+    hi = blk.to(torch.float32)
+    return hi, blk.sub_(hi).to(torch.float32)  # hi widens exactly
+
+
+def stream_shard_planes_2d(u_kn, N_k, f_k, mesh):
+    """:func:`shard_dd_planes_2d` of ``dev_split_planes(u_kn)``, bit for
+    bit, with no whole planes: each column chunk of u_kn is split under
+    its column min over every state and its row blocks are written
+    straight into the (hi, lo) blocks of its n column
+    (:func:`_stream_blocks_2d`).  A host-resident u_kn (a CPU tensor, a
+    CUDA mesh) is uploaded chunk by chunk; no K x N float64 copy and no
+    whole planes exist on the host or a card.  The 2-D counterpart of
+    :func:`stream_shard_planes`; :func:`sharded2d_solve_mbar_dd` takes its
+    blocks as they are.  Returns (u_hi_s, u_lo_s, N_k_padded, f_k_padded,
+    (k_pad, n_pad)), as :func:`shard_dd_planes_2d` does."""
+    (hi, lo), pads = _stream_blocks_2d(u_kn, mesh, (_PAD_U, 0.0), torch.float32, _split_chunk)
+    return (hi, lo, *_pad_vectors(N_k, f_k, pads[0]), pads)
+
+
 def sharded2d_wsum_dd(u_hi_s, u_lo_s, g_hi, g_lo, mesh):
     """S_k = sum_n N_k W_nk on a 2-D (k, n) mesh in dd precision.
 
@@ -1245,15 +1311,23 @@ def sharded2d_solve_mbar_dd(
     preconditioned (hi, lo) planes (numpy or float32 tensors); they are
     copied block by block (:func:`shard_dd_planes_2d`), and the solve drops
     its references to them once the blocks exist, so a caller that passes
-    its only references frees planes that sit on the card.  All states must
-    have samples.  Returns (f_k float64 ndarray, info dict).
+    its only references frees planes that sit on the card.  Or it supplies
+    the planes' blocks, the nested lists u_hi_s and u_lo_s of
+    :func:`stream_shard_planes_2d` (from a host-resident u_kn with no whole
+    planes anywhere), with the unpadded N_k and f_k.  All states must have
+    samples.  Returns (f_k float64 ndarray, info dict).
     """
     if mesh is None:
         raise ValueError("sharded2d_solve_mbar_dd requires an explicit 2-D mesh")
     dev0 = mesh.devices[0][0]
-    K, N_cols = u_hi.shape
+    K = len(N_k)
     f0 = np.zeros(K) if f_k is None else _np64(f_k)
-    u_hi_s, u_lo_s, N_pad, f_pad, _ = shard_dd_planes_2d(u_hi, u_lo, N_k, f0 - f0[0], mesh)
+    if isinstance(u_hi, list):
+        u_hi_s, u_lo_s, N_cols = u_hi, u_lo, int(np.sum(_np64(N_k)))
+        N_pad, f_pad = _pad_vectors(N_k, f0 - f0[0], len(u_hi) * u_hi[0][0].shape[0] - K)
+    else:
+        N_cols = u_hi.shape[1]
+        u_hi_s, u_lo_s, N_pad, f_pad, _ = shard_dd_planes_2d(u_hi, u_lo, N_k, f0 - f0[0], mesh)
     del u_hi, u_lo
     N_pad32 = N_pad.astype(np.float32)
     stride2 = int(np.clip(N_cols // max(32 * K, 1), 1, 64))

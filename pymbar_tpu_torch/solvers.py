@@ -45,6 +45,7 @@ from pymbar_tpu_torch.ops.mbar_core import (
     mbar_W_nk,
     precondition_u_kn,
     self_consistent_update,
+    stream_columns,
     u_kn_on,
     validate_inputs,
 )
@@ -912,6 +913,24 @@ def _batched_adaptive(U, N_k, F, gamma, tol, maxiter, min_sc_iter, nr_method):
     return f_out, done
 
 
+def _gather_replicates(u, rints, dev):
+    """(B_c, K, N) tensor on ``dev`` of the columns u[:, rints[b]] of each
+    replicate b, in the dtype of u's chunks there: u's column chunks pass
+    once (:func:`~pymbar_tpu_torch.ops.mbar_core.stream_columns`), and each
+    replicate copies out of a chunk the columns it draws from it.  A host
+    u_kn going to a card crosses the link once per call, one chunk at a
+    time; on u's own device the chunks are views."""
+    r = torch.as_tensor(rints, device=dev)
+    out = None
+    for s, e, u_c in stream_columns(u, dev):
+        if out is None:
+            out = torch.empty((r.shape[0],) + u.shape, dtype=u_c.dtype, device=dev)
+        for b in range(r.shape[0]):
+            j = torch.nonzero((r[b] >= s) & (r[b] < e)).flatten()
+            out[b].index_copy_(1, j, u_c.index_select(1, r[b, j] - s))
+    return out
+
+
 def batched_bootstrap_solve(
     u_kn,
     N_k,
@@ -937,15 +956,21 @@ def batched_bootstrap_solve(
     while_loop).  The chunk width comes from ``chunk_bytes``, by default
     half of the card's free memory (:func:`_boot_chunk`).
 
-    ``u_kn``: a tensor (used on its device) or numpy (placed on ``device``,
-    by default the card); ``rints``: the (B, N) resample indices.
+    ``u_kn``: a tensor, or numpy (placed on ``device``, by default the
+    card); ``rints``: the (B, N) resample indices.  The work runs on
+    ``device`` (default: u's own).  A CPU tensor with a CUDA ``device``
+    stays in host memory: for each chunk of replicates its column chunks
+    are uploaded once and every replicate copies its columns out of them
+    on the card (:func:`_gather_replicates`), so the card holds what the
+    resident route holds, less u_kn, plus the staging buffers.
     Returns (f_boots (B, K) ndarray with f_0 = 0, n_fail).
     """
     if torch.is_tensor(u_kn):
         u = u_kn
+        dt, dev = _work_on(u, device)
     else:
         u = torch.as_tensor(np.asarray(u_kn, dtype=np.float64), device=target_device(device))
-    dev, dt = u.device, u.dtype
+        dt, dev = u.dtype, u.device
     N_k = np.asarray(N_k, dtype=np.float64)
     f_k = np.asarray(f_k, dtype=np.float64)
     rints = np.asarray(rints)
@@ -961,9 +986,8 @@ def batched_bootstrap_solve(
     f_boots = np.zeros((B, K))
     n_fail = 0
     for start in range(0, B, chunk):
-        r = torch.as_tensor(rints[start : start + chunk], device=dev)
-        Bc = r.shape[0]
-        U_full = u[:, r].permute(1, 0, 2)  # (Bc, K, N), a gather
+        U_full = _gather_replicates(u, rints[start : start + chunk], dev)
+        Bc = U_full.shape[0]
         if len(sws) > 1:
             U = precondition_u_kn(U_full if len(sws) == K else U_full.index_select(1, sws_dev),
                                   N_sub, f_init)
