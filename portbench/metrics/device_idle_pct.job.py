@@ -1,0 +1,9 @@
+"""device_idle_pct.job: the share of the traced jobs' time in which
+the card ran nothing (no kernel, copy or set), from the union of the
+device's intervals in the profiler's trace of the run, each instant once.
+Layer: the device.  Moves ``job_s``."""
+
+
+def read(run):
+    window = run.trace.window_s()
+    return 100.0 * (1.0 - run.trace.busy_s() / window) if window > 0 else None
