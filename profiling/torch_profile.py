@@ -23,8 +23,9 @@ For each (both when none is named) it warms up ``MBAR(u_kn, N_k)`` and
 * ``MBAR`` walls by the route the state count picks and by the other
   wsum route (``_SPLIT_ROUTE_K`` moved), in turns this, other, other, this;
 * for the flagship, one ``torch.profiler`` trace of MBAR + free energies:
-  device time per kernel name (top 15), and the device-busy share of the
-  unprofiled wall of the same work.
+  device time per kernel name (top 15).  The device's busy and idle
+  shares are ``portbench``'s (``python3 portbench/run.py ... --trace 1``:
+  ``device_idle_pct.*``, from the union of the device's intervals).
 
 ``mesh`` runs the flagship through ``MBAR(u_kn, N_k, mesh=...)`` on 1-D
 meshes of 2, 4 and 8 shards of cuda:0 (and of every card when there are
@@ -123,7 +124,7 @@ and peak above what was resident); one pinned 512 MB upload (median of
 5), and a streamed pass over u_kn (``mbar_core.stream_columns``, nothing
 done with the chunks) from pageable and from pinned host memory, three
 each: GB/s; then one profiler trace of the host-resident MBAR + free
-energies (device time per kernel and copy, the device-busy share).
+energies (device time per kernel and copy).
 """
 
 import json
@@ -219,8 +220,8 @@ def profile_config(torch, name, card):
 
 
 def device_trace(torch, u, N_k, walls, mesh=None):
-    """Device time per kernel over one MBAR + free energies, and the
-    device-busy share of the unprofiled wall of the same work."""
+    """Device time per kernel over one MBAR + free energies, beside the
+    unprofiled wall of the same work."""
     from pymbar_tpu_torch import MBAR
 
     return trace_kernels(
@@ -230,9 +231,11 @@ def device_trace(torch, u, N_k, walls, mesh=None):
 
 
 def trace_kernels(torch, fn, unprofiled):
-    """Device time per kernel over one call of ``fn``, and the device-busy
-    share of ``unprofiled``, the unprofiled wall of the same work (the
-    profiler slows the host side)."""
+    """Device time per kernel over one call of ``fn`` (the program's own
+    ``pymbar_tpu_torch.*`` annotations left out), beside the profiled wall
+    and ``unprofiled``, the unprofiled wall of the same work (the profiler
+    slows the host side).  Summed kernel times count overlaps twice, so no
+    busy share is made of them: ``portbench --trace 1`` measures it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -249,16 +252,15 @@ def trace_kernels(torch, fn, unprofiled):
         return 0.0
 
     # device-side events only (the aten ops' own device totals would count
-    # their kernels twice)
+    # their kernels twice; an annotation's device range spans its kernels)
     kernels = [
         (e.key, dev_us(e), e.count) for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+        and not e.key.startswith("pymbar_tpu_torch.")
     ]
     kernels.sort(key=lambda t: -t[1])
-    busy_s = sum(t[1] for t in kernels) / 1e6
     return dict(
-        profiled_wall_s=wall, unprofiled_wall_s=unprofiled, device_busy_s=busy_s,
-        device_idle_share=1.0 - busy_s / unprofiled,
+        profiled_wall_s=wall, unprofiled_wall_s=unprofiled,
         top_kernels=[dict(name=k[:90], device_ms=t / 1e3, calls=c) for k, t, c in kernels[:15]],
     )
 

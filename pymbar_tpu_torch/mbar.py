@@ -70,6 +70,7 @@ from pymbar_tpu_torch.solvers import (
     target_device,
 )
 from pymbar_tpu_torch.solvers_large import solve_mbar_dd_bootstrap
+from pymbar_tpu_torch.tracing import span
 from pymbar_tpu_torch.utils import (
     ConvergenceError,
     DataError,
@@ -193,9 +194,12 @@ def _u_tensor(u_kn, N_k, device):
         if u_kn.ndim == 3:
             u_kn = _kln_tensor(u_kn, N_k)
         return u_kn.to(torch.float64).contiguous()
-    if np.ndim(u_kn) == 3:
-        u_kn = kln_to_kn(np.asarray(u_kn), N_k=N_k)
-    return torch.as_tensor(np.array(u_kn, dtype=np.float64), device=target_device(device))
+    with span("place.host_copy"):
+        if np.ndim(u_kn) == 3:
+            u_kn = kln_to_kn(np.asarray(u_kn), N_k=N_k)
+        u_kn = np.array(u_kn, dtype=np.float64)
+    with span("place.upload"):
+        return torch.as_tensor(u_kn, device=target_device(device))
 
 
 def _host(x):
@@ -497,7 +501,8 @@ class MBAR:
                 and self.solver_protocol[0]["method"] == "dd"
             )
             if default_boot and self.K_nonzero == self.K and (mesh is not None or dd_stage):
-                counts = bootstrap_counts(self.bootstrap_rints, self.N)
+                with span("boot.counts"):
+                    counts = bootstrap_counts(self.bootstrap_rints, self.N)
 
         f_boots = None
         if mesh is not None:
@@ -604,14 +609,15 @@ class MBAR:
         """(B, N) resample indices from ``self.rng``, drawn replicate by
         replicate and state by state as the JAX package does (mbar.py:
         871-895)."""
-        k_indices = self._state_indices()
-        rints = np.zeros((n_bootstraps, self.N), int)
-        for b in range(n_bootstraps):
-            for k, idx in enumerate(k_indices):
-                if len(idx) == 0:
-                    continue
-                n_k = int(self.N_k[k])
-                rints[b, idx] = idx[self.rng.integers(n_k, size=n_k)]
+        with span("boot.draws"):
+            k_indices = self._state_indices()
+            rints = np.zeros((n_bootstraps, self.N), int)
+            for b in range(n_bootstraps):
+                for k, idx in enumerate(k_indices):
+                    if len(idx) == 0:
+                        continue
+                    n_k = int(self.N_k[k])
+                    rints[b, idx] = idx[self.rng.integers(n_k, size=n_k)]
         return rints
 
     def _bootstrap_sequential(self, bootstrap_solver_protocol, verbose, bar_start=False):
@@ -944,8 +950,9 @@ class MBAR:
             Theta_ij = self._compute_theta_streamed(method=uncertainty_method)
 
         if compute_uncertainty and uncertainty_method == "bootstrap":
-            diffm = self.f_k_boots[:, None, :] - self.f_k_boots[:, :, None]
-            result_vals["dDelta_f"] = np.std(diffm, axis=0)
+            with span("boot.sigma"):
+                diffm = self.f_k_boots[:, None, :] - self.f_k_boots[:, :, None]
+                result_vals["dDelta_f"] = np.std(diffm, axis=0)
         elif compute_uncertainty:
             dDeltaf_ij = np.array(
                 self._ErrorOfDifferences(Theta_ij, warning_cutoff=warning_cutoff)
@@ -979,13 +986,15 @@ class MBAR:
             )
         if method not in ("svd", "svd-ew", "approximate"):
             raise ParameterError(f"Method {method} unrecognized.")
-        gram, colsum, rowstats = mbar_gram_normalization(
-            self.u_kn, self.N_k, self.f_k, device=self.device, tsqr=method == "svd"
-        )
-        self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
-        if method == "svd":
-            return self._theta_svd(gram, self.N_k).cpu().numpy()
-        return self._theta_from_gram(gram, self.N_k, method).cpu().numpy()
+        with span("theta.gram"):
+            gram, colsum, rowstats = mbar_gram_normalization(
+                self.u_kn, self.N_k, self.f_k, device=self.device, tsqr=method == "svd"
+            )
+            self._check_normalized_aggregates(colsum.cpu().numpy(), rowstats)
+        with span("theta.cov"):
+            if method == "svd":
+                return self._theta_svd(gram, self.N_k).cpu().numpy()
+            return self._theta_from_gram(gram, self.N_k, method).cpu().numpy()
 
     # -------------------------------------------------------------------------
     # Expectations
@@ -2064,19 +2073,20 @@ class MBAR:
         negatives and warning on large ones (reference mbar.py:1687-1715).
         ``cov`` is a numpy array or a tensor, computed on its device; the
         result is a numpy array."""
-        cov = torch.as_tensor(cov)
-        diag = cov.diagonal()
-        d2 = diag[None, :] + diag[:, None] - 2 * cov
-        cutoff = -abs(warning_cutoff)
-        if bool((d2 < 0.0).any()):
-            if bool((d2 < cutoff).any()):
-                logger.warning(
-                    "A squared uncertainty is negative. Largest Magnitude = "
-                    "{0:f}".format(abs(float(d2[d2 < cutoff].min())))
-                )
-            else:
-                d2[(0 > d2) & (d2 > cutoff)] = 0.0
-        return torch.sqrt(d2).cpu().numpy()
+        with span("fe.errors"):
+            cov = torch.as_tensor(cov)
+            diag = cov.diagonal()
+            d2 = diag[None, :] + diag[:, None] - 2 * cov
+            cutoff = -abs(warning_cutoff)
+            if bool((d2 < 0.0).any()):
+                if bool((d2 < cutoff).any()):
+                    logger.warning(
+                        "A squared uncertainty is negative. Largest Magnitude = "
+                        "{0:f}".format(abs(float(d2[d2 < cutoff].min())))
+                    )
+                else:
+                    d2[(0 > d2) & (d2 > cutoff)] = 0.0
+            return torch.sqrt(d2).cpu().numpy()
 
     def _zerosamestates(self, A):
         """Zero entries for state pairs detected as identical (reference :1741-1754)."""

@@ -35,7 +35,6 @@ block under a shift shared by the column (:func:`sharded2d_wsum_dd`);
 
 import dataclasses
 import logging
-import time
 
 import numpy as np
 import torch
@@ -80,6 +79,7 @@ from pymbar_tpu_torch.solvers_large import (
     polish_to_host,
     _split_into,
 )
+from pymbar_tpu_torch.tracing import span
 from pymbar_tpu_torch.utils import ParameterError
 
 logger = logging.getLogger(__name__)
@@ -1101,59 +1101,59 @@ def _sharded_solve_mbar_dd_shards(u_hi_s, u_lo_s, N_k, f_k, mesh, tol, f32_tol=1
         return f - f[0]
 
     _sync(mesh)
-    t_phase1 = time.time()
-    # ---- phase 1: float32 adaptive warm start.  Large problems solve the
-    # global every-stride-th column subsample (a consistent MBAR estimate
-    # ~1e-2 from the full solution) and take the polish's chord factor from
-    # its Gram (gram_full ~ gram_sub / ratio).
-    hinv = None
-    it32 = it32_coarse = 0
-    stride = _coarse_stride(N_k_host, K * N_real)
-    if stride:
-        sub = _strided_shards(u_hi_s, mesh, stride)
-        # per-state counts of the global stride multiples in each contiguous
-        # state block (the plane's pad columns lie past N_real: masked)
-        starts = np.concatenate([[0], np.cumsum(N_k_host)])
-        N_k_sub = np.diff(-(-starts // stride))
-        N_sub32 = _vec(N_k_sub, torch.float32, dev0)
-        f32c, it32_coarse = f32_adaptive(sub, N_sub32, f64.to(torch.float32))
-        f64 = to_f64(f32c)
-        gram_s, colsum_s = _sharded_gram(sub, N_sub32, f32c, mesh)
-        hinv = _newton_factor(gram_s / (N_real / float(N_k_sub.sum())), colsum_s, N_k64)
-        del sub
-    else:
-        f32_out, it32 = f32_adaptive(u_hi_s, N_k32, f64.to(torch.float32))
-        f64 = to_f64(f32_out)
-    _sync(mesh)
-    t_phase1 = time.time() - t_phase1
+    walls = {}
+    with span("dd.phase1", walls, "phase1_s"):
+        # ---- phase 1: float32 adaptive warm start.  Large problems solve the
+        # global every-stride-th column subsample (a consistent MBAR estimate
+        # ~1e-2 from the full solution) and take the polish's chord factor from
+        # its Gram (gram_full ~ gram_sub / ratio).
+        hinv = None
+        it32 = it32_coarse = 0
+        stride = _coarse_stride(N_k_host, K * N_real)
+        if stride:
+            sub = _strided_shards(u_hi_s, mesh, stride)
+            # per-state counts of the global stride multiples in each contiguous
+            # state block (the plane's pad columns lie past N_real: masked)
+            starts = np.concatenate([[0], np.cumsum(N_k_host)])
+            N_k_sub = np.diff(-(-starts // stride))
+            N_sub32 = _vec(N_k_sub, torch.float32, dev0)
+            f32c, it32_coarse = f32_adaptive(sub, N_sub32, f64.to(torch.float32))
+            f64 = to_f64(f32c)
+            gram_s, colsum_s = _sharded_gram(sub, N_sub32, f32c, mesh)
+            hinv = _newton_factor(gram_s / (N_real / float(N_k_sub.sum())), colsum_s, N_k64)
+            del sub
+        else:
+            f32_out, it32 = f32_adaptive(u_hi_s, N_k32, f64.to(torch.float32))
+            f64 = to_f64(f32_out)
+        _sync(mesh)
+    with span("dd.phase2", walls, "phase2_s"):
+        # ---- phase 2: the dd polish, its chord factor from the full sharded
+        # Gram when no coarse phase gave one.
+        if hinv is None:
+            gram, colsum = _sharded_gram(u_hi_s, N_k32, f64.to(torch.float32), mesh)
+            hinv = _newton_factor(gram, colsum, N_k64)
+        logN = torch.log(N_k64)
 
-    # ---- phase 2: the dd polish, its chord factor from the full sharded
-    # Gram when no coarse phase gave one.
-    t_phase2 = time.time()
-    if hinv is None:
-        gram, colsum = _sharded_gram(u_hi_s, N_k32, f64.to(torch.float32), mesh)
-        hinv = _newton_factor(gram, colsum, N_k64)
-    logN = torch.log(N_k64)
+        def run_polish(f_start):
+            return polish_to_host(_sharded_polish_dd(
+                u_hi_s, u_lo_s, N_k64, f_start, hinv, logN, tol, gamma, mesh, polish_maxiter
+            ))
 
-    def run_polish(f_start):
-        return polish_to_host(_sharded_polish_dd(
-            u_hi_s, u_lo_s, N_k64, f_start, hinv, logN, tol, gamma, mesh, polish_maxiter
-        ))
+        f64, it, g64, deltas, converged, at_noise_floor = run_polish(f64)
 
-    f64, it, g64, deltas, converged, at_noise_floor = run_polish(f64)
+        if not converged and it32_coarse:
+            # The subsample factor failed to contract the polish (rare): the
+            # full-plane float32 phase, a fresh factor and one more polish.
+            f32_out, it32 = f32_adaptive(u_hi_s, N_k32, f64.to(torch.float32))
+            f64 = to_f64(f32_out)
+            gram, colsum = _sharded_gram(u_hi_s, N_k32, f64.to(torch.float32), mesh)
+            hinv = _newton_factor(gram, colsum, N_k64)
+            f64, it2, g64, deltas2, converged, at_noise_floor = run_polish(f64)
+            deltas += deltas2
+            it += it2
 
-    if not converged and it32_coarse:
-        # The subsample factor failed to contract the polish (rare): the
-        # full-plane float32 phase, a fresh factor and one more polish.
-        f32_out, it32 = f32_adaptive(u_hi_s, N_k32, f64.to(torch.float32))
-        f64 = to_f64(f32_out)
-        gram, colsum = _sharded_gram(u_hi_s, N_k32, f64.to(torch.float32), mesh)
-        hinv = _newton_factor(gram, colsum, N_k64)
-        f64, it2, g64, deltas2, converged, at_noise_floor = run_polish(f64)
-        deltas += deltas2
-        it += it2
+        gnorm = float(torch.linalg.norm(g64)) if it else np.nan
 
-    gnorm = float(torch.linalg.norm(g64)) if it else np.nan
     info = dict(
         converged=converged,
         at_noise_floor=at_noise_floor,
@@ -1162,8 +1162,8 @@ def _sharded_solve_mbar_dd_shards(u_hi_s, u_lo_s, N_k, f_k, mesh, tol, f32_tol=1
         polish_iterations=it,
         deltas=deltas,
         gnorm=gnorm,
-        phase1_s=t_phase1,
-        phase2_s=time.time() - t_phase2,
+        phase1_s=walls["phase1_s"],
+        phase2_s=walls["phase2_s"],
         hinv=hinv,
     )
     if return_state:
@@ -1336,52 +1336,49 @@ def sharded2d_solve_mbar_dd(
 
     # ---- phase 1: float32 Anderson on the (subsampled) hi blocks
     _sync(mesh)
-    t_phase1 = time.time()
-
-    def sc32(fv):
-        f_sci = sharded2d_core_stats(sub, N_pad32, fv.astype(np.float32), mesh)[2]
-        f_sci = f_sci.cpu().numpy().astype(np.float64)
-        return f_sci - f_sci[0]
-
-    f, it32, _, _, _ = _anderson(sc32, f_pad, f32_maxiter, f32_tol, m_history, K=K,
-                                delta_mode="mixed")
-    t_phase1 = time.time() - t_phase1
-
-    # ---- phase 2: the dd chord-Newton polish, dd Anderson as its fallback
-    t_phase2 = time.time()
-    logN = np.where(N_pad > 0, np.log(np.where(N_pad > 0, N_pad, 1.0)), 0.0)
-    gram, colsum = sharded2d_gram(sub, N_pad32, f.astype(np.float32), mesh)
-    del sub
-    N_k64 = torch.as_tensor(N_pad, device=dev0)
-    hinv = torch.eye(len(N_pad) - 1, dtype=torch.float64, device=dev0)
-    hinv[: K - 1, : K - 1] = _newton_factor(gram[:K, :K] * ratio, colsum[:K] * ratio, N_k64[:K])
-    del gram, colsum
-    f64, it_dd, g64, deltas, converged, at_floor = polish_to_host(_sharded2d_polish_dd(
-        u_hi_s, u_lo_s, N_k64, torch.as_tensor(f, device=dev0), hinv,
-        torch.as_tensor(logN, device=dev0), tol, 1.0, mesh, polish_maxiter,
-    ))
-    max_delta = deltas[-1] if deltas else np.inf
-    f = f64.cpu().numpy()
-    g = g64[:K].cpu().numpy()
-
-    if not converged:
-        def wsum_at(fv):
-            gh, gl = dd_from_f64(torch.as_tensor(fv + logN, device=dev0))
-            return dd_to_f64(*sharded2d_wsum_dd(u_hi_s, u_lo_s, gh, gl, mesh)).cpu().numpy()
-
-        def sc_dd(fv):
-            S = wsum_at(fv)
-            with np.errstate(divide="ignore", invalid="ignore"):
-                f_sci = fv + logN - np.log(np.where(S > 0, S, 1.0))
-            f_sci[N_pad == 0] = 0.0
+    walls = {}
+    with span("dd.phase1", walls, "phase1_s"):
+        def sc32(fv):
+            f_sci = sharded2d_core_stats(sub, N_pad32, fv.astype(np.float32), mesh)[2]
+            f_sci = f_sci.cpu().numpy().astype(np.float64)
             return f_sci - f_sci[0]
 
-        f, it2, max_delta, converged, at_floor = _anderson(
-            sc_dd, f, polish_maxiter, tol, m_history, K=K, delta_mode="mixed",
-            floor_stop=3.0e-13)
-        it_dd += it2
-        g = (wsum_at(f) - N_pad)[:K]  # the gradient certificate
-    t_phase2 = time.time() - t_phase2
+        f, it32, _, _, _ = _anderson(sc32, f_pad, f32_maxiter, f32_tol, m_history, K=K,
+                                    delta_mode="mixed")
+    with span("dd.phase2", walls, "phase2_s"):
+        # ---- phase 2: the dd chord-Newton polish, dd Anderson as its fallback
+        logN = np.where(N_pad > 0, np.log(np.where(N_pad > 0, N_pad, 1.0)), 0.0)
+        gram, colsum = sharded2d_gram(sub, N_pad32, f.astype(np.float32), mesh)
+        del sub
+        N_k64 = torch.as_tensor(N_pad, device=dev0)
+        hinv = torch.eye(len(N_pad) - 1, dtype=torch.float64, device=dev0)
+        hinv[: K - 1, : K - 1] = _newton_factor(gram[:K, :K] * ratio, colsum[:K] * ratio, N_k64[:K])
+        del gram, colsum
+        f64, it_dd, g64, deltas, converged, at_floor = polish_to_host(_sharded2d_polish_dd(
+            u_hi_s, u_lo_s, N_k64, torch.as_tensor(f, device=dev0), hinv,
+            torch.as_tensor(logN, device=dev0), tol, 1.0, mesh, polish_maxiter,
+        ))
+        max_delta = deltas[-1] if deltas else np.inf
+        f = f64.cpu().numpy()
+        g = g64[:K].cpu().numpy()
+
+        if not converged:
+            def wsum_at(fv):
+                gh, gl = dd_from_f64(torch.as_tensor(fv + logN, device=dev0))
+                return dd_to_f64(*sharded2d_wsum_dd(u_hi_s, u_lo_s, gh, gl, mesh)).cpu().numpy()
+
+            def sc_dd(fv):
+                S = wsum_at(fv)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    f_sci = fv + logN - np.log(np.where(S > 0, S, 1.0))
+                f_sci[N_pad == 0] = 0.0
+                return f_sci - f_sci[0]
+
+            f, it2, max_delta, converged, at_floor = _anderson(
+                sc_dd, f, polish_maxiter, tol, m_history, K=K, delta_mode="mixed",
+                floor_stop=3.0e-13)
+            it_dd += it2
+            g = (wsum_at(f) - N_pad)[:K]  # the gradient certificate
 
     return f[:K], dict(
         converged=converged,
@@ -1391,8 +1388,8 @@ def sharded2d_solve_mbar_dd(
         max_delta=max_delta,
         deltas=deltas,
         gnorm=float(np.linalg.norm(g)),
-        phase1_s=t_phase1,
-        phase2_s=t_phase2,
+        phase1_s=walls["phase1_s"],
+        phase2_s=walls["phase2_s"],
     )
 
 

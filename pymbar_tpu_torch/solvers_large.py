@@ -46,6 +46,7 @@ from pymbar_tpu_torch.ops.mbar_core import (
 )
 from pymbar_tpu_torch.ops.wsum import wsum_dd
 from pymbar_tpu_torch.solvers import _adaptive_while, target_device
+from pymbar_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +129,8 @@ def stream_split_planes(u_kn, device=None, rows=None):
     K = u.shape[0] if rows is None else len(rows)
     uh = torch.empty((K, u.shape[1]), dtype=torch.float32, device=dev)
     ul = torch.empty_like(uh)
-    _split_into(u, uh, ul, rows)
+    with span("dd.split"):
+        _split_into(u, uh, ul, rows)
     return uh, ul
 
 
@@ -320,80 +322,78 @@ def solve_mbar_dd(
         )
 
     _sync(dev)
-    t_phase1 = time.time()
+    walls = {}
+    with span("dd.phase1", walls, "phase1_s"):
+        # ---- phase 1a: warm start on a strided subsample, whose f_k sits
+        # ~1e-2..1e-3 from the full solution at ~1/stride the cost; the polish
+        # starts directly from it, with its chord factor from the subsample Gram.
+        it32_coarse = 0
+        hinv = None
+        stride = _coarse_stride(N_k_host, u_hi.numel())
+        if stride:
+            if (N_k_host % stride == 0).all():
+                # every state block is stride-aligned: a plain strided copy
+                u_sub = u_hi[:, ::stride].contiguous()
+                N_k_sub = N_k_host // stride
+            else:
+                idx, N_k_sub = _strided_subsample(N_k_host, stride)
+                u_sub = u_hi.index_select(1, torch.as_tensor(idx, device=dev))
+            N_sub32 = torch.as_tensor(N_k_sub, dtype=torch.float32, device=dev)
+            f32_coarse, it32_coarse, _, _, _, done32 = f32_adaptive(u_sub, N_sub32, f64)
+            f64 = f32_coarse.to(torch.float64)
+            f64 = f64 - f64[0]
+            # W columns normalize to 1 whatever the sample count, so
+            # gram_full ~ gram_sub / ratio while the column sums stay ~1.
+            gram_s, colsum_s = gram_f32_acc64(u_sub, N_sub32, f32_coarse)
+            ratio = float(N_k_host.sum()) / float(N_k_sub.sum())
+            hinv = _newton_factor(gram_s / ratio, colsum_s, N_k64)
+            del u_sub
 
-    # ---- phase 1a: warm start on a strided subsample, whose f_k sits
-    # ~1e-2..1e-3 from the full solution at ~1/stride the cost; the polish
-    # starts directly from it, with its chord factor from the subsample Gram.
-    it32_coarse = 0
-    hinv = None
-    stride = _coarse_stride(N_k_host, u_hi.numel())
-    if stride:
-        if (N_k_host % stride == 0).all():
-            # every state block is stride-aligned: a plain strided copy
-            u_sub = u_hi[:, ::stride].contiguous()
-            N_k_sub = N_k_host // stride
-        else:
-            idx, N_k_sub = _strided_subsample(N_k_host, stride)
-            u_sub = u_hi.index_select(1, torch.as_tensor(idx, device=dev))
-        N_sub32 = torch.as_tensor(N_k_sub, dtype=torch.float32, device=dev)
-        f32_coarse, it32_coarse, _, _, _, done32 = f32_adaptive(u_sub, N_sub32, f64)
-        f64 = f32_coarse.to(torch.float64)
-        f64 = f64 - f64[0]
-        # W columns normalize to 1 whatever the sample count, so
-        # gram_full ~ gram_sub / ratio while the column sums stay ~1.
-        gram_s, colsum_s = gram_f32_acc64(u_sub, N_sub32, f32_coarse)
-        ratio = float(N_k_host.sum()) / float(N_k_sub.sum())
-        hinv = _newton_factor(gram_s / ratio, colsum_s, N_k64)
-        del u_sub
+        # ---- phase 1b (small problems only): full-plane float32 adaptive.
+        it32 = 0
+        if not it32_coarse:
+            f32_out, it32, _, _, _, done32 = f32_adaptive(u_hi, N_k32, f64)
+            f64 = f32_out.to(torch.float64)
+            f64 = f64 - f64[0]
+        _sync(dev)
+    with span("dd.phase2", walls, "phase2_s"):
+        # ---- phase 2: double-word chord-Newton polish on the wsum kernel.
+        logN = torch.log(N_k64)
+        if hinv is None:
+            gram, colsum = gram_f32_acc64(u_hi, N_k32, f64.to(torch.float32))
+            hinv = _newton_factor(gram, colsum, N_k64)
 
-    # ---- phase 1b (small problems only): full-plane float32 adaptive.
-    it32 = 0
-    if not it32_coarse:
-        f32_out, it32, _, _, _, done32 = f32_adaptive(u_hi, N_k32, f64)
-        f64 = f32_out.to(torch.float64)
-        f64 = f64 - f64[0]
-    _sync(dev)
-    t_phase1 = time.time() - t_phase1
-    t_phase2 = time.time()
-
-    # ---- phase 2: double-word chord-Newton polish on the wsum kernel.
-    logN = torch.log(N_k64)
-    if hinv is None:
-        gram, colsum = gram_f32_acc64(u_hi, N_k32, f64.to(torch.float32))
-        hinv = _newton_factor(gram, colsum, N_k64)
-
-    def run_polish(f_start):
-        return polish_to_host(
-            _polish_loop(
-                wsum_dd, u_hi, u_lo, N_k64, f_start, hinv, logN, tol, gamma, polish_maxiter
+        def run_polish(f_start):
+            return polish_to_host(
+                _polish_loop(
+                    wsum_dd, u_hi, u_lo, N_k64, f_start, hinv, logN, tol, gamma, polish_maxiter
+                )
             )
-        )
 
-    f64, it, g64, deltas, converged, at_noise_floor = run_polish(f64)
-    max_delta = deltas[-1] if deltas else np.inf
-
-    if not converged and it32_coarse:
-        # The subsample factor failed to contract the polish: full-plane
-        # float32 adaptive from the current iterate, a fresh full-plane
-        # factor, and one more polish.
-        logger.info(
-            "dd polish did not converge off the subsample factor "
-            "(last delta %.2e); re-running with the full-plane factor",
-            max_delta,
-        )
-        f32_out, it32, _, _, _, done32 = f32_adaptive(u_hi, N_k32, f64)
-        f64 = f32_out.to(torch.float64)
-        f64 = f64 - f64[0]
-        gram, colsum = gram_f32_acc64(u_hi, N_k32, f64.to(torch.float32))
-        hinv = _newton_factor(gram, colsum, N_k64)
-        f64, it2, g64, deltas2, converged, at_noise_floor = run_polish(f64)
-        deltas += deltas2
-        it += it2
+        f64, it, g64, deltas, converged, at_noise_floor = run_polish(f64)
         max_delta = deltas[-1] if deltas else np.inf
 
-    gnorm = float(torch.linalg.norm(g64)) if it else np.nan
-    f_out = f64.cpu().numpy()
+        if not converged and it32_coarse:
+            # The subsample factor failed to contract the polish: full-plane
+            # float32 adaptive from the current iterate, a fresh full-plane
+            # factor, and one more polish.
+            logger.info(
+                "dd polish did not converge off the subsample factor "
+                "(last delta %.2e); re-running with the full-plane factor",
+                max_delta,
+            )
+            f32_out, it32, _, _, _, done32 = f32_adaptive(u_hi, N_k32, f64)
+            f64 = f32_out.to(torch.float64)
+            f64 = f64 - f64[0]
+            gram, colsum = gram_f32_acc64(u_hi, N_k32, f64.to(torch.float32))
+            hinv = _newton_factor(gram, colsum, N_k64)
+            f64, it2, g64, deltas2, converged, at_noise_floor = run_polish(f64)
+            deltas += deltas2
+            it += it2
+            max_delta = deltas[-1] if deltas else np.inf
+
+        gnorm = float(torch.linalg.norm(g64)) if it else np.nan
+        f_out = f64.cpu().numpy()
     return f_out, dict(
         converged=converged,
         at_noise_floor=at_noise_floor,
@@ -404,8 +404,8 @@ def solve_mbar_dd(
         max_delta=max_delta,
         deltas=deltas,
         gnorm=gnorm,
-        phase1_s=t_phase1,
-        phase2_s=time.time() - t_phase2,
+        phase1_s=walls["phase1_s"],
+        phase2_s=walls["phase2_s"],
         hinv=hinv,
     )
 
@@ -750,8 +750,9 @@ def bootstrap_polish_dd(
     n_tol_converged == B).  The serial mode adds ``polish_iterations``
     (B,), one ``wsum_dd`` pass each.  The batched mode adds ``phase_walls`` (host
     seconds, synchronize-fenced: prep, upload, materialize, fast, exact,
-    total), ``fast_iters``, ``exact_iters`` (B,) and ``exact_deltas``
-    (maxiter, last group's width).
+    total; all but total from :func:`pymbar_tpu_torch.tracing.span`),
+    ``fast_iters``, ``exact_iters`` (B,) and ``exact_deltas`` (maxiter,
+    last group's width).
     """
     if not torch.is_tensor(u_hi):
         u_hi = torch.as_tensor(np.asarray(u_hi), device=target_device(device))
@@ -794,48 +795,42 @@ def bootstrap_polish_dd(
     if mode != "batched":
         raise ValueError(f"bootstrap_polish_dd: unknown mode {mode!r}")
 
-    t_all = time.time()
+    t_all = time.perf_counter()
     n_chunk = _batch_chunk_width(K, N)
     group = _batch_group_size(B, N)
     walls = dict(prep_s=0.0, upload_s=0.0, materialize_s=0.0, fast_s=0.0, exact_s=0.0)
     th = None
-    t0 = time.time()
-    if _use_resident_th(K, N):
-        # one extra exp pass buys every fast iteration of every group
-        g0h, g0l = dd_from_f64(f0 + logN)
-        th = _materialize_th(u_hi, u_lo, g0h, g0l, n_chunk)
-        _sync(dev)
-    walls["materialize_s"] = time.time() - t0
+    with span("boot.materialize", walls, "materialize_s"):
+        if _use_resident_th(K, N):
+            # one extra exp pass buys every fast iteration of every group
+            g0h, g0l = dd_from_f64(f0 + logN)
+            th = _materialize_th(u_hi, u_lo, g0h, g0l, n_chunk)
+            _sync(dev)
     f_boots = np.zeros((B, K))
     at_floor = np.zeros(B, bool)
     fast_iters = 0
     exact_iters = np.zeros(B, np.int32)
     retry = []
-    t0 = time.time()
-    up_dtype = _counts_upload_dtype(counts)
-    walls["prep_s"] += time.time() - t0
+    with span("boot.prep", walls, "prep_s"):
+        up_dtype = _counts_upload_dtype(counts)
     for s in range(0, B, group):
         # a short last group runs as it is: replicate rows are independent
         e = min(B, s + group)
-        t0 = time.time()
-        C = np.ascontiguousarray(counts[s:e], dtype=up_dtype)
-        walls["prep_s"] += time.time() - t0
-        t0 = time.time()
-        C_dev = torch.as_tensor(C, device=dev)
-        _sync(dev)
-        walls["upload_s"] += time.time() - t0
-        t0 = time.time()
-        F, it_f = _polish_while_dd_batch_fast(u_hi, u_lo, C_dev, N_k64, f0, hinv, gamma, n_chunk,
-                                              th=th)
-        _sync(dev)
-        walls["fast_s"] += time.time() - t0
+        with span("boot.prep", walls, "prep_s"):
+            C = np.ascontiguousarray(counts[s:e], dtype=up_dtype)
+        with span("boot.upload", walls, "upload_s"):
+            C_dev = torch.as_tensor(C, device=dev)
+            _sync(dev)
+        with span("boot.fast", walls, "fast_s"):
+            F, it_f = _polish_while_dd_batch_fast(u_hi, u_lo, C_dev, N_k64, f0, hinv, gamma,
+                                                  n_chunk, th=th)
+            _sync(dev)
         fast_iters = max(fast_iters, it_f)
-        t0 = time.time()
-        F, iters, deltas_g, conv, floor = _polish_while_dd_batch_exact(
-            u_hi, u_lo, C_dev, N_k64, F, f0, hinv, tol, gamma, maxiter, n_chunk
-        )
-        f_boots[s:e] = F.cpu().numpy()
-        walls["exact_s"] += time.time() - t0
+        with span("boot.exact", walls, "exact_s"):
+            F, iters, deltas_g, conv, floor = _polish_while_dd_batch_exact(
+                u_hi, u_lo, C_dev, N_k64, F, f0, hinv, tol, gamma, maxiter, n_chunk
+            )
+            f_boots[s:e] = F.cpu().numpy()
         conv = conv.cpu().numpy()
         at_floor[s:e] = floor.cpu().numpy()
         exact_iters[s:e] = iters.cpu().numpy()
@@ -845,17 +840,18 @@ def bootstrap_polish_dd(
             logger.info(f"Calculated {e:d}/{B:d} bootstrap samples (batched)")
     del th  # release the 4 B/element fast plane before the retries
     n_fail = 0
-    for b in retry:
-        c = torch.as_tensor(np.asarray(counts[b], dtype=np.float32), device=dev)
-        f_b = torch.as_tensor(f_boots[b], device=dev)
-        f_b, _it, _g, _d, converged, floor_b = _retry_polish(
-            u_hi, u_lo, c, N_k64, f_b, logN, tol, gamma, maxiter
-        )
-        at_floor[b] = converged and floor_b
-        n_fail += not converged
-        f_boots[b] = f_b.cpu().numpy()
+    with span("boot.retry"):
+        for b in retry:
+            c = torch.as_tensor(np.asarray(counts[b], dtype=np.float32), device=dev)
+            f_b = torch.as_tensor(f_boots[b], device=dev)
+            f_b, _it, _g, _d, converged, floor_b = _retry_polish(
+                u_hi, u_lo, c, N_k64, f_b, logN, tol, gamma, maxiter
+            )
+            at_floor[b] = converged and floor_b
+            n_fail += not converged
+            f_boots[b] = f_b.cpu().numpy()
     info = _boot_info(at_floor, B, n_fail)
-    walls["total_s"] = time.time() - t_all
+    walls["total_s"] = time.perf_counter() - t_all
     info["phase_walls"] = walls
     info["fast_iters"] = fast_iters
     info["exact_iters"] = exact_iters
@@ -877,7 +873,8 @@ def solve_mbar_dd_bootstrap(u_kn, N_k, f_k, counts, tol=1.0e-12, options=None, v
     :func:`bootstrap_polish_dd` on the same planes with the base chord
     factor.  All states must have samples.  Returns (f_k, f_boots, n_fail,
     info), ``info`` the base solve's plus ``bootstrap_at_floor``,
-    ``bootstrap_n_at_floor`` and ``bootstrap_n_tol_converged``.
+    ``bootstrap_n_at_floor``, ``bootstrap_n_tol_converged`` and the
+    engine's ``phase_walls`` as ``bootstrap_phase_walls``.
     """
     options = dict(options or {})
     dev = u_kn.device if torch.is_tensor(u_kn) and device is None else target_device(device)
@@ -895,4 +892,5 @@ def solve_mbar_dd_bootstrap(u_kn, N_k, f_k, counts, tol=1.0e-12, options=None, v
     info["bootstrap_at_floor"] = boot_info["at_floor"]
     info["bootstrap_n_at_floor"] = boot_info["n_at_floor"]
     info["bootstrap_n_tol_converged"] = boot_info["n_tol_converged"]
+    info["bootstrap_phase_walls"] = boot_info["phase_walls"]
     return f_sol, f_boots - f_boots[:, :1], n_fail, info
