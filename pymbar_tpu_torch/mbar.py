@@ -17,6 +17,10 @@ A tensor stays where it is and the work runs there; a numpy array goes to
 ``device`` as a float64 tensor (default: ``PYMBAR_TPU_TORCH_DEVICE`` when
 set, else the CUDA card; without one, pass ``device="cpu"`` or set
 ``PYMBAR_TPU_TORCH_DEVICE=cpu``; :func:`pymbar_tpu_torch.config.target_device`).
+From 2 MiB of float64 up (``_STAGED_UPLOAD_BYTES``) it goes to a card
+block by block through two pinned staging buffers
+(``mbar_core._upload_whole``), cast on the host one block at a time, and
+is never copied whole in host memory.
 A CPU tensor with a CUDA ``device`` is host-resident:
 ``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing, and
 every pass over u_kn streams its column chunks to the card through two
@@ -49,6 +53,7 @@ from pymbar_tpu_torch.ops.mbar_core import (
     _logden_direct,
     _same_device,
     _tsqr_rows,
+    _upload_whole,
     _work_on,
     log_denominator_n,
     mbar_gram_normalization,
@@ -114,6 +119,15 @@ _BATCHED_BOOT_BYTES = 8 * 2**30
 # below 1 MB nothing was measured, and the reference's branch stays.
 # Module constant so tests can move it.
 _AUG_STREAM_BYTES = 2**20
+
+# From this many float64 bytes up, a numpy u_kn goes to a card through the
+# staged upload (mbar_core._upload_whole); below it, in one pageable copy of
+# a float64 host copy, as to the CPU.  Measured on an H100 80GB HBM3 (700 W),
+# a call and its synchronize, pageable / staged: 24 KB 40 / 108 us, 384 KB
+# 92 / 282, 1 MiB 234 / 370, 2 MiB 516 / 438, 8 MiB 2675 / 960, 32 MiB
+# 23333 / 2754: the staged route's fixed ~0.07-0.19 ms loses below 2 MiB.
+# Module constant so tests can move it.
+_STAGED_UPLOAD_BYTES = 2 * 2**20
 
 # Collapse the aliased augmented Gram to three K x K Grams when eligible
 # (see _aug_pass_b_struct); module switch so tests can pin the structured
@@ -184,7 +198,10 @@ def _place(u_kn, N_k, device):
 def _u_tensor(u_kn, N_k, device):
     """u_kn as a float64 (K, N) tensor.  A tensor keeps its device (and must
     match ``device`` when one is given); numpy goes to ``device``, by
-    default the CUDA card (:func:`target_device`)."""
+    default the CUDA card (:func:`target_device`): to a card block by block
+    through pinned staging (:func:`_upload_whole`, a u_kln laid out as
+    (L, N) first), from ``_STAGED_UPLOAD_BYTES`` of float64 up; a smaller
+    one, or one for the CPU, as a float64 copy."""
     if torch.is_tensor(u_kn):
         if device is not None and not _same_device(device, u_kn.device):
             raise ParameterError(
@@ -194,12 +211,17 @@ def _u_tensor(u_kn, N_k, device):
         if u_kn.ndim == 3:
             u_kn = _kln_tensor(u_kn, N_k)
         return u_kn.to(torch.float64).contiguous()
-    with span("place.host_copy"):
-        if np.ndim(u_kn) == 3:
+    dev = target_device(device)
+    if np.ndim(u_kn) == 3:
+        with span("place.host_copy"):
             u_kn = kln_to_kn(np.asarray(u_kn), N_k=N_k)
+    u_kn = np.asarray(u_kn)
+    if dev.type == "cuda" and u_kn.size * 8 >= _STAGED_UPLOAD_BYTES:
+        return _upload_whole(u_kn, dev)
+    with span("place.host_copy"):
         u_kn = np.array(u_kn, dtype=np.float64)
     with span("place.upload"):
-        return torch.as_tensor(u_kn, device=target_device(device))
+        return torch.as_tensor(u_kn, device=dev)
 
 
 def _host(x):
@@ -329,9 +351,11 @@ class MBAR:
     Parameters are those of :class:`pymbar_tpu.MBAR`, plus ``device``: where
     a numpy ``u_kn`` is placed (default ``PYMBAR_TPU_TORCH_DEVICE``, else
     "cuda", and without a card a :class:`ParameterError` that asks for
-    ``device="cpu"``; a tensor's own device is used as it is).  A CPU
-    tensor with a CUDA ``device`` is host-resident: ``self.u_kn`` keeps the
-    caller's tensor in host memory
+    ``device="cpu"``; a tensor's own device is used as it is).  Numpy of
+    2 MiB and more goes to a card block by block through pinned staging,
+    with no full-size host copy; the caller's array may change once the
+    constructor returns.  A CPU tensor with a CUDA ``device`` is
+    host-resident: ``self.u_kn`` keeps the caller's tensor in host memory
     (``MBAR(torch.from_numpy(u), N_k, device="cuda")`` copies nothing) and
     the work runs on ``self.device``, every pass streaming u_kn's column
     chunks through pinned staging to the card (see the module docstring).

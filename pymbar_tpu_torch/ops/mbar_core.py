@@ -20,7 +20,11 @@ float64 to :func:`pymbar_tpu_torch.config.target_device` (the card, or
 the device ``device=`` or ``PYMBAR_TPU_TORCH_DEVICE`` names), while
 :func:`validate_inputs` and the streaming helpers (:func:`stream_columns`,
 :func:`u_kn_on`) keep it on the host as a CPU float64 tensor sharing its
-memory.  Eager PyTorch makes a full-size temporary
+memory.  A whole matrix goes from host memory to a card through
+:func:`_upload_whole` (the numpy front door of ``MBAR`` and ``FES`` from
+2 MiB up, and :func:`u_kn_on`): contiguous blocks cast into two pinned
+buffers, each copied straight into its slice of the destination.  Eager
+PyTorch makes a full-size temporary
 for each elementwise op, so every K x N pass walks the sample axis in
 column chunks of at most ``_CHUNK_BYTES`` (:func:`stream_columns`) and
 updates its chunk temporaries in place.
@@ -36,11 +40,13 @@ own) the chunks are views of u_kn.
 """
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
 from pymbar_tpu_torch.config import target_device
+from pymbar_tpu_torch.tracing import span
 from pymbar_tpu_torch.utils import ensure_type
 
 __all__ = [
@@ -59,6 +65,7 @@ __all__ = [
     "mbar_gram_normalization",
     "gram_f32_acc64",
     "precondition_u_kn",
+    "STAGED_UPLOADS",
 ]
 
 # Column-chunk size of every K x N pass.  On the 80 GB H100 the flagship
@@ -67,6 +74,9 @@ __all__ = [
 # those at ~3 GB while each op still streams ~0.15 ms at 3.35 TB/s, far
 # above the ~5 us launch cost.
 _CHUNK_BYTES = 512 * 2**20
+
+# Whole-matrix uploads through pinned staging (:func:`_upload_whole`).
+STAGED_UPLOADS = 0
 
 # u at or above this is the sentinel of a pad column (the kernels' +1e10).
 _PAD_THRESHOLD = 5.0e9
@@ -207,15 +217,99 @@ def _staged_upload(u, dev, rows, ranges):
         work.wait_stream(side)
 
 
+def _upload_blocks(K, N, itemsize=8):
+    """(k0, k1, j0, j1) blocks of a C-ordered (K, N) matrix, in order, that
+    together cover it once: whole rows k0:k1 while one row fits in
+    ``_CHUNK_BYTES``, else pieces j0:j1 of one row k0.  Each block is one
+    contiguous run of at most ``_CHUNK_BYTES`` (of ``itemsize``-byte
+    elements, one element at least)."""
+    if K * N == 0:
+        return []
+    if N * itemsize <= _CHUNK_BYTES:
+        rows = _CHUNK_BYTES // (N * itemsize)
+        return [(k0, min(K, k0 + rows), 0, N) for k0 in range(0, K, rows)]
+    width = max(1, _CHUNK_BYTES // itemsize)
+    return [(k, k + 1, j0, min(N, j0 + width)) for k in range(K) for j0 in range(0, N, width)]
+
+
+# numpy dtypes that torch views in place and casts to float64 as numpy does
+_VIEWABLE = frozenset(np.dtype(t) for t in (
+    np.float64, np.float32, np.float16, np.int64, np.int32, np.int16, np.int8, np.uint8,
+    np.bool_))
+
+
+def _host_view(u):
+    """u (a CPU tensor, or numpy) as a CPU tensor sharing its memory; None
+    for numpy that torch cannot view (another dtype or byte order, a
+    negative or fractional stride)."""
+    if torch.is_tensor(u):
+        return u
+    if u.dtype not in _VIEWABLE or any(s < 0 or s % u.itemsize for s in u.strides):
+        return None
+    with warnings.catch_warnings():
+        # a read-only array is only read
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(u)
+
+
+def _upload_whole(u, dev):
+    """u, a 2-D numpy array or CPU tensor of any dtype and layout, as a new
+    float64 (K, N) tensor on the card ``dev``, bit-identical to
+    ``torch.as_tensor(np.array(u, np.float64), device=dev)``, with no
+    full-size temporary on the host or the card.
+
+    The destination is walked in the contiguous blocks of
+    :func:`_upload_blocks`.  Block i is cast-copied on the host into pinned
+    buffer i % 2 (``Tensor.copy_``, on the intra-op threads; numpy's own
+    cast for what torch cannot view), then copied with ``non_blocking``
+    straight into its slice of the destination on the current stream, so
+    the work after it is ordered after it without a host synchronize.  A
+    pinned buffer is refilled only after its last copy has left (an event),
+    so the host's cast of block i + 1 runs during the copy of block i.  The
+    pinned buffers come from PyTorch's cached pinned allocator, which holds
+    a buffer back from reuse until its copies are done; the card holds the
+    destination alone.  Spans: ``place.host_copy`` per host cast,
+    ``place.upload`` per wait for a copy; counted in ``STAGED_UPLOADS``."""
+    global STAGED_UPLOADS
+    K, N = u.shape
+    out = torch.empty((K, N), dtype=torch.float64, device=dev)
+    blocks = _upload_blocks(K, N)
+    src = _host_view(u)
+    stream = torch.cuda.current_stream(out.device)
+    size = max(((k1 - k0) * (j1 - j0) for k0, k1, j0, j1 in blocks), default=0)
+    host = [torch.empty(size, dtype=torch.float64, pin_memory=True)
+            for _ in range(min(2, len(blocks)))]
+    left = [None, None]
+    for i, (k0, k1, j0, j1) in enumerate(blocks):
+        b = i % 2
+        if left[b] is not None:
+            with span("place.upload"):
+                left[b].synchronize()
+        stage = host[b][: (k1 - k0) * (j1 - j0)].view(k1 - k0, j1 - j0)
+        with span("place.host_copy"):
+            if src is None:
+                np.copyto(stage.numpy(), u[k0:k1, j0:j1], casting="unsafe")
+            else:
+                stage.copy_(src[k0:k1, j0:j1])
+        out[k0:k1, j0:j1].copy_(stage, non_blocking=True)
+        left[b] = torch.cuda.Event()
+        left[b].record(stream)
+    STAGED_UPLOADS += 1
+    return out
+
+
 def u_kn_on(u_kn, device=None, rows=None):
     """u_kn[rows] (every row by default) as one tensor on ``device``
-    (default: u's own), filled from :func:`stream_columns`: a host-resident
-    u_kn is uploaded chunk by chunk (float64) and no host copy is made.
-    u_kn itself when it lies there and no rows are selected."""
+    (default: u's own): a host-resident u_kn is uploaded (float64) and no
+    host copy is made, whole by :func:`_upload_whole`, selected rows from
+    :func:`stream_columns`.  u_kn itself when it lies there and no rows are
+    selected."""
     u = _as_tensor(u_kn)
     dt, dev = _work_on(u, device)
     if rows is None and _same_device(u.device, dev):
         return u
+    if rows is None and u.device.type == "cpu" and dev.type == "cuda":
+        return _upload_whole(u, dev)
     K = u.shape[0] if rows is None else len(rows)
     out = torch.empty((K, u.shape[1]), dtype=dt, device=dev)
     for s, e, u_c in stream_columns(u, dev, rows=rows):

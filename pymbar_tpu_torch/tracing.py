@@ -15,8 +15,11 @@ energies, the expectations, ``FES``): no span is opened inside another.
 The spans:
 
 ========================  ==========================================================
-``place.host_copy``       ``mbar._u_tensor``: numpy ``u_kn`` copied to float64
-``place.upload``          ``mbar._u_tensor``: that copy to the device
+``place.host_copy``       ``mbar_core._upload_whole``: one block of ``u_kn`` cast into pinned
+                          memory; ``mbar._u_tensor``: a u_kln laid out, or the float64 copy
+                          of numpy placed on the CPU
+``place.upload``          ``mbar_core._upload_whole``: a wait for a block's copy to the card
+                          to leave its pinned buffer; ``mbar._u_tensor``: the CPU copy placed
 ``boot.draws``            ``MBAR._draw_bootstrap_rints``: the resample indices
 ``boot.counts``           ``MBAR.__init__``: their per-sample counts
 ``boot.sigma``            the free energies' bootstrap standard deviation

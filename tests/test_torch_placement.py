@@ -239,3 +239,29 @@ def test_host_side_functions_keep_numpy_on_the_host():
     assert hi.device.type == lo.device.type == "cpu"
     # two float32 words hold 48 of the 53 bits
     np.testing.assert_allclose(hi.numpy().astype(np.float64) + lo.numpy(), U, rtol=1e-13)
+
+
+# (K, N, chunk in elements; None: the default chunk)
+UPLOAD_SHAPES = [
+    (1, 1, 10), (1, 25, 10), (7, 1, 10), (6, 5, 10), (5, 10, 10), (4, 7, 10),
+    (3, 30, 10), (2, 11, 1), (0, 5, 10), (3, 0, 10), (1024, 999_424, None),
+]
+
+
+@pytest.mark.parametrize("K, N, chunk", UPLOAD_SHAPES)
+def test_upload_blocks_cover_the_matrix_once_in_order(K, N, chunk, monkeypatch):
+    """The blocks of the numpy front door's staged upload: whole rows, or
+    pieces of one row when a row outgrows a chunk; each one contiguous run
+    of the (K, N) destination of at most a chunk, in order, with no gap or
+    overlap."""
+    if chunk is not None:
+        monkeypatch.setattr(tcore, "_CHUNK_BYTES", 8 * chunk)
+    limit = tcore._CHUNK_BYTES // 8
+    end = 0
+    for k0, k1, j0, j1 in tcore._upload_blocks(K, N):
+        assert 0 <= k0 < k1 <= K and 0 <= j0 < j1 <= N
+        assert (j0, j1) == (0, N) or k1 == k0 + 1
+        assert k0 * N + j0 == end
+        end = (k1 - 1) * N + j1
+        assert (k1 - k0) * (j1 - j0) <= limit
+    assert end == K * N
