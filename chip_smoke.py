@@ -6,8 +6,8 @@
 Phases, one JSON line each; any failure raises and exits non-zero.
 
 0. The card's name and power limit (nvidia-smi); build csrc/wsum.cu,
-   csrc/wsum_split.cu, csrc/lognum.cu and csrc/roofline.cu with nvcc, in
-   parallel.
+   csrc/wsum_split.cu, csrc/lognum.cu, csrc/roofline.cu and
+   csrc/gram_weights.cu with nvcc, in parallel.
 1. Each kernel against its plain PyTorch version on the same CUDA tensors.
    K1 wsum_dd: relative error of S <= 1e-13 at K = 1, 3, 257, 1000 (not a
    multiple of the cluster's blocks or rows), the split-route gate 4096
@@ -59,14 +59,22 @@ Phases, one JSON line each; any failure raises and exits non-zero.
    34 TFLOP/s (nor float32 105% of 67), and each pinned ceiling must reach
    K1's streaming element rate at its K (the flagship; K = 4096 x 262,144).
    Prints K1's roofline fraction (its flagship element rate over K8b's).
+   1e. Theta's weight build (gram_weights) at the main path's float64
+   chunk shapes, (1024, 65,536) and (4096, 16,384): the kernel against its
+   plain version (w within 1e-12 relative where above 1e-290, logden within
+   1e-13 relative to max(|logden|, 1), the row and column sums within
+   1e-12 relative), the column sums the same bits twice, one launch a
+   call; its time beside its 16-byte bound (read u, write w) and the plain
+   version's.
 2. The main path at full size: the flagship problem of bench.py (K = 1024
    harmonic-oscillator states x 976 samples, ~8 GB of float64 u_kn) made
    on the card from a seed, then MBAR(u_kn, N_k) with the default protocol
    and compute_free_energy_differences().  It must take the dd route
    through K1, converge (gradient norm / N <= 1e-11), agree with the
    analytic free energies (|z| < 6), lie within 1e-8 of an explicit float64
-   adaptive solve, and its Theta (rank-nnz, on the card) must match the
-   dense host Theta of the same Gram (rtol 1e-8, atol 1e-12 max|Theta|).
+   adaptive solve, its Theta pass must launch gram_weights once a column
+   chunk (16), and its Theta (rank-nnz, on the card) must match the dense
+   host Theta of the same Gram (rtol 1e-8, atol 1e-12 max|Theta|).
 3. The many-state slice: K = 8192 oscillator states x 40 samples (N =
    327,680, 21.5 GB of float64 u_kn) through MBAR and the free energies.
    It must take the dd route with every polish iteration on the split
@@ -274,7 +282,9 @@ Phases, one JSON line each; any failure raises and exits non-zero.
 
 Then the card, the kernels line (K1's launches: phase 2's MBAR, phase 9
 (a)'s, phase 11's, phase 12's and phase 13's runs; the shift's, K3's and
-K4's: phase 3's MBAR, phase 10 (b)'s and phase 13 (d)'s solves) and
+K4's: phase 3's MBAR, phase 10 (b)'s and phase 13 (d)'s solves;
+gram_weights': phase 2's Theta, one a column chunk, and its time at
+(1024, 65,536)) and
 {"ok": true, "device": {...}} close the output.  Without a CUDA card, or
 without the repository beside this
 file, it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -321,7 +331,10 @@ FES_MC_STEPS = 200
 SMALL_K = 16
 SMALL_NPK = 3000
 SMALL_BOOT = 100
-SOURCES = ("wsum", "wsum_split", "lognum", "roofline")
+SOURCES = ("wsum", "wsum_split", "lognum", "roofline", "gram_weights")
+# Phase 1e: the column-chunk shapes of the Theta pass at K = 1024 and 4096
+# (512 MiB of float64 each, ops/mbar_core._CHUNK_BYTES).
+GRAM_SHAPES = ((1024, 65536), (4096, 16384))
 LOG_ABS_TOL = 1.0e-12
 MESH_DF_TOL = 5.0e-10
 # The peak of 'svd' at the flagship when it factored the whole N x K W on
@@ -1999,7 +2012,7 @@ def main():
 
     from pymbar_tpu_torch import MBAR, bar, checkpoint, config, exp, testsystems, timeseries
     from pymbar_tpu_torch.mbar import bootstrap_counts
-    from pymbar_tpu_torch.ops import _build, lognum, roofline, wsum, wsum_split
+    from pymbar_tpu_torch.ops import _build, gram_weights, lognum, mbar_core, roofline, wsum, wsum_split
     from pymbar_tpu_torch.ops.doubledouble import dd_from_f64, dd_to_f64
     from pymbar_tpu_torch.parallel import sharding
     from pymbar_tpu_torch.ops.mbar_core import mbar_gradient, mbar_gram_normalization
@@ -2623,6 +2636,41 @@ def main():
     if any(v["launches"] <= 0 for v in probe_runs.values()):
         fail(f"a probe launched no kernel: {probe_runs}")
 
+    # ---- phase 1e: Theta's weight build against its plain version
+    gram_checks, gram_ms = [], {}
+    gen_g = torch.Generator(device=dev).manual_seed(SEED)
+    for K_g, nc_g in GRAM_SHAPES:
+        u_g = torch.rand((K_g, nc_g), generator=gen_g, dtype=torch.float64, device=dev) * 10.0
+        N_g = torch.randint(1, 50, (K_g,), generator=gen_g, device=dev).to(torch.float64)
+        f_g = torch.randn(K_g, generator=gen_g, dtype=torch.float64, device=dev)
+        before = gram_weights.GRAM_WEIGHTS_LAUNCHES
+        w, ld, rs, cs = gram_weights.gram_weights(u_g, N_g, f_g)
+        torch.cuda.synchronize()
+        if gram_weights.GRAM_WEIGHTS_LAUNCHES != before + 1:
+            fail(f"gram_weights {K_g}x{nc_g}: GRAM_WEIGHTS_LAUNCHES did not rise by one")
+        w_r, ld_r, rs_r, cs_r = gram_weights.gram_weights_plain(u_g, N_g, f_g)
+        big = w_r > 1e-290
+        e = dict(w=rel_err(w[big], w_r[big]),
+                 logden=float(((ld - ld_r).abs() / ld_r.abs().clamp_min(1.0)).max()),
+                 rowsum=rel_err(rs, rs_r), colsum=rel_err(cs, cs_r),
+                 same_bits=torch.equal(gram_weights.gram_weights(u_g, N_g, f_g)[3], cs))
+        err["gram_weights"] = max(err.get("gram_weights", 0.0), float((w - w_r).abs().max()))
+        gram_checks.append(dict(K=K_g, N=nc_g, **e))
+        if not (e["w"] <= 1e-12 and e["logden"] <= 1e-13 and e["rowsum"] <= 1e-12
+                and e["colsum"] <= 1e-12 and e["same_bits"]):
+            fail(f"gram_weights {K_g}x{nc_g} vs plain: {e}")
+        del w, ld, rs, cs, w_r, ld_r, rs_r, cs_r, big
+        gram_ms[(K_g, nc_g)] = (median_ms(torch, lambda: gram_weights.gram_weights(u_g, N_g, f_g)),
+                                median_ms(torch, lambda: gram_weights.gram_weights_plain(
+                                    u_g, N_g, f_g)))
+        del u_g
+        torch.cuda.empty_cache()
+    times["gram_weights"] = gram_ms[GRAM_SHAPES[0]]
+    emit("1_gram_weights", checks=gram_checks, shapes=[list(sh) for sh in GRAM_SHAPES],
+         ms=[gram_ms[sh][0] for sh in GRAM_SHAPES], plain_ms=[gram_ms[sh][1] for sh in GRAM_SHAPES],
+         bound_ms=[bound(8 * K_g * nc_g + 16 * K_g, 8 * K_g * nc_g + 16 * nc_g, 0, F64_OPS_PER_S)[0]
+                   for K_g, nc_g in GRAM_SHAPES])
+
     # ---- phase 2: the main path at full size (K1 route, Theta on the card)
     flag_seed = SEED + 1  # phase 4 rebuilds the same u_kn
     u_kn, N_k, fa, _x = oscillators(torch, FLAGSHIP_K, FLAGSHIP_NPK,
@@ -2639,17 +2687,21 @@ def main():
     init_s = time.perf_counter() - t0
     flag_launches = wsum.WSUM_LAUNCHES
     flag_split = [getattr(wsum_split, n) for n in counters]
+    gram_weights.GRAM_WEIGHTS_LAUNCHES = 0
     t0 = time.perf_counter()
     res = mbar.compute_free_energy_differences()
     torch.cuda.synchronize()
     theta_s = time.perf_counter() - t0
+    flag_gram_launches = gram_weights.GRAM_WEIGHTS_LAUNCHES
+    flag_chunks = len(mbar_core._col_ranges(FLAGSHIP_K, 8, 0, N_flag))
     peak_bytes = flag_peak = torch.cuda.max_memory_allocated()
 
     route, shards = mesh_route(mbar)
     info = mbar.solver_results[0]["info"] if route in ("dd", "mesh") else {}
     gnorm_per_n = info.get("gnorm", float("nan")) / N_flag
     summary = dict(
-        route=route, shards=shards, wsum_launches=flag_launches, split_launches=flag_split, init_s=init_s,
+        route=route, shards=shards, wsum_launches=flag_launches, split_launches=flag_split,
+        gram_weights_launches=flag_gram_launches, theta_chunks=flag_chunks, init_s=init_s,
         theta_s=theta_s, phase1_s=info.get("phase1_s"), phase2_s=info.get("phase2_s"),
         f32_coarse_iterations=info.get("f32_coarse_iterations"),
         polish_iterations=info.get("polish_iterations"), deltas=info.get("deltas"),
@@ -2675,6 +2727,9 @@ def main():
         fail(f"the flagship did not take the dd route through K1 alone ({summary})")
     if not info["converged"] or not gnorm_per_n <= 1.0e-11:
         fail(f"dd solve not converged: gnorm/N = {gnorm_per_n:.3e}")
+    if flag_gram_launches != flag_chunks:
+        fail(f"the flagship's Theta launched gram_weights {flag_gram_launches} times, "
+             f"not once for each of its {flag_chunks} column chunks")
     check_free_energies(res, summary["max_abs_z"], "flagship")
     np.testing.assert_allclose(theta_dev, theta_host, rtol=1e-8, atol=1e-12 * scale)
     del gram, theta_dev, theta_host
@@ -3160,6 +3215,12 @@ def main():
         (name, "pymbar_tpu_torch/csrc/roofline.cu", replaces, probe_runs[name]["launches"],
          bound(8 * Kp * tile + 8 * Kp, 8 * Kp, 6 * Kp * tile * steps, F64_OPS_PER_S))
         for (name, (Kp, tile, steps)), replaces in zip(PINNED.items(), ("bench.py:308", "bench.py:373"))
+    ] + [
+        ("gram_weights", "pymbar_tpu_torch/csrc/gram_weights.cu",
+         "none: XLA's fusion in pymbar_tpu/ops/mbar_core.py:476",
+         flag_gram_launches,
+         bound(8 * Kg * ncg + 16 * Kg, 8 * Kg * ncg + 16 * ncg, 0, F64_OPS_PER_S))
+        for Kg, ncg in GRAM_SHAPES[:1]
     ]
     print(smi)
     print(json.dumps({"kernels": [dict(

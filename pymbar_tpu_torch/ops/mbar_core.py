@@ -613,7 +613,10 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
     plus (bad row count, first bad row index, its row sum) for the
     sum_k N_k W_nk = 1 check, without an N-sized host array.  Computes in
     the work's dtype on ``device`` (default: u's own; float64 on the card:
-    the JAX package's float32 here was a TPU-only choice).
+    the JAX package's float32 here was a TPU-only choice).  Each chunk's
+    weights and their sums come from
+    :func:`~pymbar_tpu_torch.ops.gram_weights.gram_weights` (one kernel on
+    the card).
 
     The augmented-state expectations (``MBAR._expectations_streamed``'s pass
     B) ride the same chunk loop:
@@ -634,13 +637,14 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
     chunk by chunk (:func:`_tsqr_fold`) in place of the Gram: R^T R =
     W^T W, and the SVD of R gives W's Sigma and V (the 'svd' covariance).
     """
+    # imported here: the module imports this one
+    from pymbar_tpu_torch.ops.gram_weights import gram_weights
+
     u_kn, N_k, f_k, dev = _prepare(_placed(u_kn, device), N_k, f_k, device)
     dt = N_k.dtype
     K, N = u_kn.shape
-    N_s, f_s = N_k, f_k
     if sampled is not None:
         sampled = torch.as_tensor(sampled, device=dev)
-        N_s, f_s = N_k[sampled], f_k[sampled]
     gram = colsum = None
     big = torch.tensor(N + 1, dtype=torch.int64, device=dev)
     cnt = torch.zeros((), dtype=torch.int64, device=dev)
@@ -651,10 +655,8 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
         m2 = torch.zeros_like(m1)
         c_a = torch.zeros(K, dtype=dt, device=dev)
     for s, e, u_c in stream_columns(u_kn, dev):
-        logden = _logden_direct(u_c if sampled is None else u_c.index_select(0, sampled), N_s, f_s)
-        w = _weights(u_c, f_k, logden)
-        w.masked_fill_(u_c >= _PAD_THRESHOLD, 0.0)  # pad columns: phantom samples
-        rowsum = (N_k @ w).to(torch.float64)
+        w, logden, rowsum, w_sum = gram_weights(u_c, N_k, f_k, sampled)
+        rowsum = rowsum.to(torch.float64)
         if observable is not None:
             a = observable(s, e, u_c)
             wa = w * (a[None, :] if a.ndim == 1 else a)
@@ -662,7 +664,8 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
             m2 += _matmul(wa, wa.T)
             c_a += wa.sum(dim=1)
         if extra_rows is not None:
-            w = torch.cat([w, extra_rows(s, e, u_c, logden)])
+            rows = extra_rows(s, e, u_c, logden)
+            w, w_sum = torch.cat([w, rows]), torch.cat([w_sum, rows.sum(dim=1)])
         if colsum is None:
             colsum = torch.zeros(w.shape[0], dtype=dt, device=dev)
             if not tsqr:
@@ -671,7 +674,7 @@ def mbar_gram_normalization(u_kn, N_k, f_k, tolerance=1.0e-4, sampled=None,
             gram = _tsqr_fold(gram, w.T)
         else:
             gram += _matmul(w, w.T)
-        colsum += w.sum(dim=1)
+        colsum += w_sum
         bad = torch.abs(rowsum - 1.0) > tolerance
         cnt += bad.sum()
         local_first = torch.argmax(bad.to(torch.int32))

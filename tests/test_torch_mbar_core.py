@@ -165,3 +165,79 @@ def test_validate_inputs(problem):
             tc.validate_inputs(*bad)
         with pytest.raises(ValueError):
             jc.validate_inputs(*bad)
+
+
+def _old_chunk_body(u_c, N_k, f_k, sampled=None):
+    """The chunk body ``mbar_gram_normalization`` ran before
+    ``gram_weights``: (w, logden, rowsum, column sums)."""
+    N_s, f_s = (N_k, f_k) if sampled is None else (N_k[sampled], f_k[sampled])
+    logden = tc._logden_direct(u_c if sampled is None else u_c.index_select(0, sampled), N_s, f_s)
+    w = tc._weights(u_c, f_k, logden)
+    w.masked_fill_(u_c >= tc._PAD_THRESHOLD, 0.0)
+    return w, logden, N_k @ w, w.sum(dim=1)
+
+
+def _old_gram_normalization(u, N_k, f_k, sampled=None, tolerance=1.0e-4):
+    """``mbar_gram_normalization``'s loop before ``gram_weights``, without
+    its callbacks: (gram, colsum, rowstats)."""
+    gram = torch.zeros((u.shape[0],) * 2, dtype=u.dtype)
+    colsum = torch.zeros(u.shape[0], dtype=u.dtype)
+    cnt, fidx, fval = 0, u.shape[1] + 1, 0.0
+    for s, e, u_c in tc.stream_columns(u):
+        w, _, rowsum, cs = _old_chunk_body(u_c, N_k, f_k, sampled)
+        gram += w @ w.T
+        colsum += cs
+        bad = torch.nonzero(torch.abs(rowsum.to(torch.float64) - 1.0) > tolerance).flatten()
+        if len(bad) and cnt == 0:
+            fidx, fval = s + int(bad[0]), float(rowsum[bad[0]])
+        cnt += len(bad)
+    return gram, colsum, (cnt, fidx, fval)
+
+
+def _weights_case(problem, case):
+    """(u, N_k, f, sampled) of a ``gram_weights`` case: pad columns; an
+    empty state whose f - u lies above every other row, with and without
+    ``sampled``; a row of +inf (a state no sample reaches)."""
+    u, N_k, f = (torch.from_numpy(x.copy()) for x in problem)
+    sampled = None
+    if case in ("pad_columns", "inf_row"):
+        u = torch.cat([u, torch.full((K, 5), 1.0e10, dtype=u.dtype)], dim=1)
+    if case.startswith("empty_state") or case == "inf_row":
+        N_k[7] = 0.0
+        u[7] = u.min() - 5.0
+        if case != "empty_state_all_rows":
+            sampled = torch.tensor([k for k in range(K) if k != 7])
+    if case == "inf_row":
+        u[7] = torch.inf
+    return u, N_k, f, sampled
+
+
+WEIGHTS_CASES = ["pad_columns", "empty_state_sampled", "empty_state_all_rows", "inf_row"]
+
+
+@pytest.mark.parametrize("case", WEIGHTS_CASES)
+def test_gram_weights_plain_is_the_old_chunk_body(problem, case):
+    """``gram_weights`` on a CPU chunk runs ``gram_weights_plain``: bit for
+    bit the chunk body it replaced, NaNs and infinities in the same places."""
+    from pymbar_tpu_torch.ops import gram_weights as gw
+
+    u, N_k, f, sampled = _weights_case(problem, case)
+    before = gw.GRAM_WEIGHTS_LAUNCHES
+    ours = gw.gram_weights(u, N_k, f, sampled)
+    assert gw.GRAM_WEIGHTS_LAUNCHES == before  # the plain version launches nothing
+    for o, r in zip(ours, _old_chunk_body(u.clone(), N_k, f, sampled)):
+        assert torch.equal(o.isnan(), r.isnan())
+        assert torch.equal(o.nan_to_num(), r.nan_to_num())
+
+
+@pytest.mark.parametrize("case", WEIGHTS_CASES)
+def test_chunked_gram_normalization_matches_the_old_loop(problem, chunking, case):
+    """The whole pass against the loop it replaced, in one chunk and in
+    nine: column sums and row checks bit for bit, the Gram to 1e-12 of
+    its largest entry."""
+    u, N_k, f, sampled = _weights_case(problem, case)
+    g, cs, rows = tc.mbar_gram_normalization(u, N_k, f, sampled=sampled)
+    g_ref, cs_ref, rows_ref = _old_gram_normalization(u, N_k, f, sampled)
+    _close(_np(g), _np(g_ref))
+    assert torch.equal(cs, cs_ref)
+    assert rows == rows_ref
